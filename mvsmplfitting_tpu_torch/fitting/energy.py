@@ -1,0 +1,355 @@
+"""The multi-view SMPLify fitting energy, batched over frames (port of
+`fitting/energy.py`).
+
+`total_energy` is the scalar objective of the reference's `SMPLifyLoss`
+(`code/utils/fitting.py:290-415`): GMoF-robustified, confidence-weighted
+2D reprojection over all views plus the VPoser / L2 pose prior, the L2
+shape prior and the exponential bending prior.  `residuals` restates it
+as a least-squares vector with ``sum(r^2) == total_energy`` for the LM
+solver, and `residual_jacobian` gives (r, dr/dx) with the deep blocks in
+closed form (the two CUDA kernels on the card).
+
+Every function takes x (B, n) and returns per-frame values.  Not ported
+yet: the collision (SDF) term, the 3D-joint term, the GMM prior and the
+SMPL-H/X parameter blocks; asking for them raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+from torch.func import jvp, vmap
+
+from ..models import vposer as vposer_lib
+from ..models.camera import Camera, project_points
+from ..models.priors import angle_prior_terms
+from ..models.smpl import SMPLAssets, SMPLParams, smpl_forward
+from ..ops.robust import gmof, gmof_residual
+
+LATENT_DIM = vposer_lib.LATENT_DIM
+
+
+@dataclasses.dataclass
+class Observations:
+    """Per-frame fitting observations, frames leading (views masked)."""
+
+    gt2d: torch.Tensor           # (B, V, K, 2) 2D keypoints
+    conf: torch.Tensor           # (B, V, K) detection confidences
+    view_mask: torch.Tensor      # (B, V) 1 for live views
+    joint_weights: torch.Tensor  # (B, K) per-joint data weights
+
+    def to(self, device) -> "Observations":
+        return Observations(*(t.to(device)
+                              for t in dataclasses.astuple(self)))
+
+
+@dataclasses.dataclass
+class StageWeights:
+    """Annealing-stage loss weights (`non_linear_solver.py:103-121`).
+    `data` is per frame (B,) (500 / image height); the rest are scalars."""
+
+    data: torch.Tensor
+    pose: torch.Tensor
+    shape: torch.Tensor
+    bending: torch.Tensor
+    coll: torch.Tensor
+    coll_on: bool = False
+
+    @classmethod
+    def make(cls, data, pose, shape, bending=None, coll=0.0,
+             device=None) -> "StageWeights":
+        def f(v):
+            return torch.as_tensor(v, dtype=torch.float32, device=device)
+        if bending is None:
+            bending = 3.17 * pose
+        return cls(data=f(data), pose=f(pose), shape=f(shape),
+                   bending=f(bending), coll=f(coll), coll_on=bool(coll > 0))
+
+
+@dataclasses.dataclass(frozen=True)
+class EnergySpec:
+    """Static configuration of the energy."""
+
+    use_vposer: bool = True
+    fix_shape: bool = False
+    fix_scale: bool = False
+    use_3d: bool = False
+    use_joints_conf: bool = True
+    prior_type: str = "l2"
+    rho: float = 100.0
+    num_betas: int = 10
+    interpenetration: bool = False
+    hand_dim: int = 0
+    num_expr: int = 0
+    opt_face: bool = False
+
+
+def check_ported(spec: EnergySpec, weights: Optional[StageWeights] = None
+                 ) -> None:
+    """Raise NotImplementedError for energy terms not ported yet."""
+    if spec.use_3d:
+        raise NotImplementedError("the 3D-joint data term is not ported yet")
+    if spec.interpenetration and (weights is None or weights.coll_on):
+        raise NotImplementedError(
+            "the interpenetration (SDF collision) term is not ported yet")
+    if not spec.use_vposer and spec.prior_type != "l2":
+        raise NotImplementedError(
+            f"prior_type {spec.prior_type!r} is not ported yet (only l2)")
+    if extra_dims(spec):
+        raise NotImplementedError(
+            "SMPL-H/X hand, expression and face blocks are not ported yet")
+
+
+# Flat parameter vector (B, n): [pose block, betas(NB), global_orient(3),
+# transl(3), scale(1)], pose block = z(32) with VPoser, else body_pose(69).
+
+def pose_dim(spec: EnergySpec) -> int:
+    return LATENT_DIM if spec.use_vposer else 69
+
+
+def extra_dims(spec: EnergySpec) -> int:
+    return 2 * spec.hand_dim + spec.num_expr + (9 if spec.opt_face else 0)
+
+
+def pack(spec: EnergySpec, params: SMPLParams,
+         z: Optional[torch.Tensor] = None) -> torch.Tensor:
+    check_ported(spec)
+    block = z if spec.use_vposer else params.body_pose
+    return torch.cat([block, params.betas, params.global_orient,
+                      params.transl, params.scale[:, None]], dim=-1)
+
+
+def unpack(spec: EnergySpec, x: torch.Tensor
+           ) -> Tuple[SMPLParams, Optional[torch.Tensor]]:
+    p = pose_dim(spec)
+    nb = spec.num_betas
+    block, betas = x[:, :p], x[:, p:p + nb]
+    orient = x[:, p + nb:p + nb + 3]
+    transl = x[:, p + nb + 3:p + nb + 6]
+    scale = x[:, p + nb + 6]
+    if spec.use_vposer:
+        return SMPLParams(betas=betas, global_orient=orient,
+                          body_pose=torch.zeros_like(x[:, :1]).expand(
+                              x.shape[0], 69),
+                          transl=transl, scale=scale), block
+    return SMPLParams(betas=betas, global_orient=orient, body_pose=block,
+                      transl=transl, scale=scale), None
+
+
+def free_mask(spec: EnergySpec, device=None) -> torch.Tensor:
+    """(n,) 1 for optimized entries, 0 for frozen (fix_scale / fix_shape)."""
+    m = [1.0] * pose_dim(spec)
+    m += [0.0 if spec.fix_shape else 1.0] * spec.num_betas
+    m += [1.0] * 6
+    m += [0.0 if spec.fix_scale else 1.0]
+    m += [1.0] * extra_dims(spec)
+    return torch.tensor(m, dtype=torch.float32, device=device)
+
+
+def _col(t: torch.Tensor, ndim: int) -> torch.Tensor:
+    """A per-frame (B,) or scalar weight, shaped to broadcast over
+    (B, ...) with `ndim` trailing axes."""
+    return t.reshape((-1,) + (1,) * ndim) if t.dim() else t
+
+
+def _forward(spec: EnergySpec, assets: SMPLAssets,
+             vposer_w: Optional[vposer_lib.VPoserWeights], x: torch.Tensor):
+    params, z = unpack(spec, x)
+    body_pose = (vposer_lib.decode(vposer_w, z) if spec.use_vposer
+                 else params.body_pose)
+    if assets.joint_model is not None:
+        from ..models.joint_model import joint_forward
+        joints = joint_forward(assets.joint_model, params, body_pose)
+    else:
+        _, joints = smpl_forward(assets, params, body_pose)
+    return params, z, body_pose, joints
+
+
+def _data_weights(spec: EnergySpec, obs: Observations) -> torch.Tensor:
+    """(B, V, K) combined joint weights, masked over dead views."""
+    w = obs.joint_weights[:, None, :]
+    if spec.use_joints_conf:
+        w = w * obs.conf
+    return w * obs.view_mask[:, :, None]
+
+
+def _project(cam: Camera, joints: torch.Tensor) -> torch.Tensor:
+    """(B, K, 3) -> (B, V, K, 2)."""
+    return project_points(cam, joints).transpose(0, 1)
+
+
+def energy_terms(spec: EnergySpec, assets: SMPLAssets, cam: Camera,
+                 obs: Observations, weights: StageWeights,
+                 vposer_w: Optional[vposer_lib.VPoserWeights],
+                 gmm, x: torch.Tensor) -> dict:
+    """All energy terms as a dict of (B,) tensors (see `total_energy`)."""
+    check_ported(spec, weights)
+    params, z, body_pose, joints = _forward(spec, assets, vposer_w, x)
+    zero = torch.zeros_like(x[:, 0])
+
+    diff = gmof(obs.gt2d - _project(cam, joints), spec.rho)
+    w = _data_weights(spec, obs)
+    joint_loss = (torch.sum(w[..., None] ** 2 * diff, dim=(1, 2, 3))
+                  * weights.data ** 2)
+
+    if spec.use_vposer:
+        pprior = torch.sum(z * z, dim=-1) * weights.pose ** 2
+    else:
+        sq = torch.sum(body_pose ** 2, dim=-1)
+        pprior = sq * weights.pose ** 2 + sq * (weights.pose * 4) ** 2
+
+    shape_loss = zero
+    if not spec.fix_shape:
+        shape_loss = torch.sum(params.betas ** 2, dim=-1) * weights.shape ** 2
+
+    angle = torch.sum(angle_prior_terms(body_pose), dim=-1) * weights.bending
+    if not spec.use_vposer:
+        angle = torch.where(angle > 1e4, zero, angle)   # `fitting.py:349`
+
+    return {"joint": joint_loss, "joint3d": zero, "pose_prior": pprior,
+            "shape_prior": shape_loss, "angle_prior": angle,
+            "collision": zero, "extra_prior": zero}
+
+
+def total_energy(spec: EnergySpec, assets: SMPLAssets, cam: Camera,
+                 obs: Observations, weights: StageWeights,
+                 vposer_w: Optional[vposer_lib.VPoserWeights],
+                 gmm, x: torch.Tensor) -> torch.Tensor:
+    """(B,) scalar fitting energy, the quantity the reference minimizes."""
+    t = energy_terms(spec, assets, cam, obs, weights, vposer_w, gmm, x)
+    return (t["joint"] + t["joint3d"] + t["pose_prior"] + t["shape_prior"]
+            + t["angle_prior"] + t["collision"] + t["extra_prior"])
+
+
+def _data_rows_from_joints(spec: EnergySpec, cam: Camera,
+                           obs: Observations, weights: StageWeights,
+                           joints: torch.Tensor) -> torch.Tensor:
+    """2D data rows (B, V*K*2) from the mapped joints."""
+    w = _data_weights(spec, obs) * _col(weights.data, 2)
+    e = gmof_residual(obs.gt2d - _project(cam, joints), spec.rho)
+    return (w[..., None] * e).reshape(joints.shape[0], -1)
+
+
+def _prior_rows_core(spec: EnergySpec, weights: StageWeights,
+                     z: Optional[torch.Tensor], body_pose: torch.Tensor,
+                     betas: torch.Tensor) -> torch.Tensor:
+    """Prior rows (B, r) as a function of (z, body_pose, betas)."""
+    rows = []
+    if spec.use_vposer:
+        rows.append(weights.pose * z)
+    else:
+        rows.append(weights.pose * body_pose)
+        rows.append(4.0 * weights.pose * body_pose)
+    if not spec.fix_shape:
+        rows.append(weights.shape * betas)
+    terms = angle_prior_terms(body_pose)
+    angle_rows = torch.sqrt(weights.bending) * torch.sqrt(terms)
+    if not spec.use_vposer:
+        # Gate (`fitting.py:349-350`): the term is dropped above 1e4; the
+        # gate itself carries no derivative.
+        total = torch.sum(terms, dim=-1) * weights.bending
+        gate = (total <= 1e4).to(angle_rows.dtype)[:, None]
+        angle_rows = gate * angle_rows
+    rows.append(angle_rows)
+    return torch.cat(rows, dim=-1)
+
+
+def residuals(spec: EnergySpec, assets: SMPLAssets, cam: Camera,
+              obs: Observations, weights: StageWeights,
+              vposer_w: Optional[vposer_lib.VPoserWeights],
+              gmm, x: torch.Tensor) -> torch.Tensor:
+    """Residual rows (B, m) with sum(r^2, -1) == total_energy: the 2D
+    data rows (V*K*2, smooth `gmof_residual`) then the prior rows."""
+    check_ported(spec, weights)
+    params, z, body_pose, joints = _forward(spec, assets, vposer_w, x)
+    return torch.cat([
+        _data_rows_from_joints(spec, cam, obs, weights, joints),
+        _prior_rows_core(spec, weights, z, body_pose, params.betas)],
+        dim=-1)
+
+
+def analytic_jac_ok(spec: EnergySpec, assets: SMPLAssets) -> bool:
+    """True when `residual_jacobian` covers this energy exactly: a reduced
+    joint model with a plain chain (smpl/smpllsp) and no extra blocks."""
+    from ..ops.joint_kernel import kernel_ok
+    return kernel_ok(assets.joint_model) and extra_dims(spec) == 0
+
+
+def residual_jacobian(spec: EnergySpec, assets: SMPLAssets, cam: Camera,
+                      obs: Observations, weights: StageWeights,
+                      vposer_w: Optional[vposer_lib.VPoserWeights],
+                      gmm, x: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(r (B, m), J (B, m, n)) == (`residuals(x)`, its Jacobian).
+
+    The deep part comes in closed form from the joint-Jacobian and
+    VPoser-tail kernels (`_analytic_core`); only the shallow row maps
+    (projection + GMoF, prior rows) are differentiated, by forward mode
+    over the n tangent columns.
+    """
+    check_ported(spec, weights)
+    (joints, djoints, z_in, dz, body_pose, dbp, betas, dbe) = \
+        _analytic_core(spec, assets, vposer_w, x)
+
+    def rows(j, zz, bp, be):
+        return torch.cat([
+            _data_rows_from_joints(spec, cam, obs, weights, j),
+            _prior_rows_core(spec, weights, zz, bp, be)], dim=-1)
+
+    primals = (joints, z_in, body_pose, betas)
+    r = rows(*primals)
+
+    def column(tj, tz, tbp, tbe):
+        return jvp(rows, primals, (tj, tz, tbp, tbe))[1]
+
+    J = vmap(column, in_dims=1, out_dims=2)(djoints, dz, dbp, dbe)
+    return r, J
+
+
+def _analytic_core(spec: EnergySpec, assets: SMPLAssets, vposer_w,
+                   x: torch.Tensor):
+    """Deep half of the analytic Jacobian: the mapped joints, their
+    tangents per packed column, and the tangent inputs of the shallow
+    row maps (all with a leading frame axis)."""
+    from ..ops import joint_kernel, vposer_kernel
+
+    B, n = x.shape
+    p = pose_dim(spec)
+    nb = spec.num_betas
+    params, z = unpack(spec, x)
+    jm = assets.joint_model
+
+    if spec.use_vposer:
+        body_pose, D_z = vposer_kernel.decode_jac_batched(vposer_w, z)
+    else:
+        body_pose, D_z = params.body_pose, None
+    theta = torch.cat([params.global_orient, body_pose], dim=-1)
+    joints, blk = joint_kernel.joint_jacobian_batched(
+        jm, theta, params.betas, params.scale)
+    joints = joints + params.transl[:, None, :]
+
+    # d joints / d x, one (K, 3) tangent per packed column, pack() order.
+    cp = body_pose.shape[-1]
+    if spec.use_vposer:
+        block_cols = torch.einsum("bqkc,bqZ->bZkc", blk["pose"][:, :cp], D_z)
+    else:
+        block_cols = blk["pose"][:, :cp]
+    djoints = torch.cat([block_cols, blk["betas"], blk["orient"],
+                         blk["transl"], blk["scale"]], dim=1)  # (B,n,K,3)
+
+    dtype, device = x.dtype, x.device
+    z_in = z if spec.use_vposer else torch.zeros((B, 1), dtype=dtype,
+                                                 device=device)
+    dz = torch.zeros((B, n) + z_in.shape[1:], dtype=dtype, device=device)
+    dbp = torch.zeros((B, n, cp), dtype=dtype, device=device)
+    eye_p = torch.eye(p, dtype=dtype, device=device)
+    if spec.use_vposer:
+        dz[:, :p] = eye_p
+        dbp[:, :p] = D_z.transpose(1, 2)
+    else:
+        dbp[:, :p] = eye_p[:, :cp]
+    dbe = torch.zeros((B, n, nb), dtype=dtype, device=device)
+    dbe[:, p:p + nb] = torch.eye(nb, dtype=dtype, device=device)
+    return joints, djoints, z_in, dz, body_pose, dbp, params.betas, dbe

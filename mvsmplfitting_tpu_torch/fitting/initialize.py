@@ -1,0 +1,102 @@
+"""Initial guess for a batch of frames (port of `fitting/initialize.py`).
+
+Rest-pose annotation joints -> DLT triangulation of the 2D detections
+(several live views) or the torso-height depth heuristic (one view) ->
+Umeyama similarity on the 4 torso joints -> (global_orient, transl,
+scale); betas and the VPoser latent start at zero.  The sequence
+warm-start is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..models.camera import Camera
+from ..models.smpl import SMPLAssets, SMPLParams, rest_joints
+from ..ops.alignment import umeyama
+from ..ops.rotations import matrix_to_axis_angle
+from ..ops.triangulate import triangulate
+from .energy import LATENT_DIM
+
+TORSO = np.asarray([5, 6, 11, 12])  # LShoulder RShoulder LHip RHip
+
+
+def torso_indices(model_type: str) -> np.ndarray:
+    """Shoulder and hip rows in the model's annotation order (coco17 and
+    lsp14 both carry them at 5/6 and 11/12; SMPL-X is not ported)."""
+    return TORSO
+
+
+@dataclasses.dataclass
+class InitGuess:
+    params: SMPLParams
+    z: torch.Tensor         # (B, 32) VPoser latent (zeros)
+    joints3d: torch.Tensor  # (B, K, 3) triangulated target joints
+
+
+def _single_view_depth(cam: Camera, rest: torch.Tensor,
+                       pixels: torch.Tensor, view_mask: torch.Tensor,
+                       torso: np.ndarray = TORSO) -> torch.Tensor:
+    """Torso-height depth heuristic in each frame's first live view
+    (`init_guess.py:54-79`): rest joints (K, 3), pixels (B, V, K, 2),
+    view_mask (B, V) -> (B, K, 3)."""
+    B = pixels.shape[0]
+    v = torch.argmax(view_mask, dim=1)                       # first live
+    R = cam.rotation[v]                                      # (B, 3, 3)
+    t = cam.translation[v]                                   # (B, 3)
+    torso3d_c = torch.einsum("mc,bdc->bmd", rest[torso], R) + t[:, None]
+    d3 = torch.stack([torso3d_c[:, 0] - torso3d_c[:, 2],
+                      torso3d_c[:, 1] - torso3d_c[:, 3]], dim=1)
+    h3 = torch.mean(torch.linalg.vector_norm(d3, dim=-1), dim=-1)
+
+    torso2d = pixels[torch.arange(B, device=pixels.device), v][:, torso]
+    # sic: the reference uses (t0 - t2) twice (`init_guess.py:66`).
+    d2 = torch.stack([torso2d[:, 0] - torso2d[:, 2],
+                      torso2d[:, 0] - torso2d[:, 2]], dim=1)
+    h2 = torch.mean(torch.linalg.vector_norm(d2, dim=-1), dim=-1)
+
+    est_d = cam.focal[v, 0] * (h3 / torch.clamp_min(h2, 1e-6))
+    cam_joints = torch.einsum("kc,bdc->bkd", rest, R) + t[:, None]
+    cam_joints = torch.cat([cam_joints[..., :2],
+                            cam_joints[..., 2:] + est_d[:, None, None]],
+                           dim=-1)
+    return (cam_joints - t[:, None]) @ R
+
+
+def init_guess(assets: SMPLAssets, cam: Camera, pixels: torch.Tensor,
+               conf: torch.Tensor, view_mask: torch.Tensor,
+               est_scale: bool = True, fixed_scale: float = 1.0,
+               use_torso: bool = True) -> InitGuess:
+    """Initial parameters for a batch of frames.
+
+    Args:
+      pixels: (B, V, K, 2) 2D keypoints; conf: (B, V, K); view_mask: (B, V).
+    """
+    B = pixels.shape[0]
+    dtype, device = pixels.dtype, pixels.device
+    rest = rest_joints(assets)                               # (K, 3)
+    torso = torso_indices(assets.model_type)
+
+    n_views = torch.sum(view_mask, dim=1)
+    tri = triangulate(cam, pixels, conf, view_mask)
+    single = _single_view_depth(cam, rest, pixels, view_mask, torso)
+    joints3d = torch.where((n_views > 1)[:, None, None], tri, single)
+
+    if use_torso:
+        src, dst = rest[torso], joints3d[:, torso]
+    else:
+        src, dst = rest, joints3d
+    rot, trans, scale = umeyama(src.expand(B, -1, -1), dst, est_scale)
+    orient = matrix_to_axis_angle(rot)
+    if not est_scale:
+        scale = torch.full_like(scale, fixed_scale)
+
+    def zeros(*s):
+        return torch.zeros((B,) + s, dtype=dtype, device=device)
+
+    params = SMPLParams(betas=zeros(assets.num_betas), global_orient=orient,
+                        body_pose=zeros(69), transl=trans, scale=scale)
+    return InitGuess(params=params, z=zeros(LATENT_DIM), joints3d=joints3d)

@@ -1,0 +1,118 @@
+"""Staged annealing fit over a batch of frames (port of
+`fitting/stages.py` for ``solver="lm"``).
+
+The reference's 4 weight stages (`cfg_files/fit_smpl.yaml:40-59`) run in
+order on the same parameter vector; each is one batched `lm_fit`.  Not
+ported yet: the L-BFGS and gradient solvers, the fused one-loop form
+(`lm_fit_staged`) and the sequence schedule.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from ..models.camera import Camera
+from ..models.smpl import SMPLAssets, SMPLParams
+from ..models.vposer import VPoserWeights
+from . import energy as E
+from .energy import EnergySpec, Observations, StageWeights
+from .lm import LMOptions, lm_fit
+
+# Demo schedule: per-stage (body_pose_weight, shape_weight,
+# coll_loss_weight); data weight 500 / image_height for every stage and
+# bending = 3.17 * pose.
+DEFAULT_POSE_WEIGHTS = (404.0, 404.0, 57.4, 4.78)
+DEFAULT_SHAPE_WEIGHTS = (100.0, 50.0, 10.0, 5.0)
+DEFAULT_COLL_WEIGHTS = (0.0, 0.0, 1000.0, 4500.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class FitConfig:
+    spec: EnergySpec = EnergySpec()
+    solver: str = "lm"
+    pose_weights: Tuple[float, ...] = DEFAULT_POSE_WEIGHTS
+    shape_weights: Tuple[float, ...] = DEFAULT_SHAPE_WEIGHTS
+    coll_weights: Tuple[float, ...] = DEFAULT_COLL_WEIGHTS
+    lm: LMOptions = LMOptions()
+
+
+@dataclasses.dataclass
+class FitResult:
+    params: SMPLParams
+    z: torch.Tensor             # (B, 32) pose embedding (zeros w/o VPoser)
+    body_pose: torch.Tensor     # (B, 69) decoded / direct body pose
+    loss: torch.Tensor          # (B,) final energy
+    stage_losses: torch.Tensor  # (B, num_stages)
+    lm_iters: torch.Tensor      # (B, num_stages) LM iterations per stage
+
+
+def default_stages(cfg: FitConfig, img_height: torch.Tensor
+                   ) -> Sequence[StageWeights]:
+    """Per-stage weights; img_height (B,) gives the per-frame data weight."""
+    data_w = 500.0 / img_height.to(torch.float32)
+    return [StageWeights.make(data=data_w, pose=pw, shape=sw, coll=cw,
+                              device=img_height.device)
+            for pw, sw, cw in zip(cfg.pose_weights, cfg.shape_weights,
+                                  cfg.coll_weights)]
+
+
+def run_stage(cfg: FitConfig, assets: SMPLAssets, cam: Camera,
+              obs: Observations, weights: StageWeights,
+              vposer_w: Optional[VPoserWeights], gmm, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One annealing stage from x; returns (x_new, energy, LM iterations)."""
+    if cfg.solver != "lm":
+        raise NotImplementedError(
+            f"solver {cfg.solver!r} is not ported yet (only 'lm')")
+    spec = cfg.spec
+    mask = E.free_mask(spec, x.device)
+
+    def res_fn(xv):
+        return E.residuals(spec, assets, cam, obs, weights, vposer_w, gmm,
+                           xv)
+
+    jac_fn = None
+    if (cfg.lm.jac == "analytic" and E.analytic_jac_ok(spec, assets)
+            and not (spec.interpenetration and weights.coll_on)):
+        def jac_fn(xv):
+            return E.residual_jacobian(spec, assets, cam, obs, weights,
+                                       vposer_w, gmm, xv)
+    x_new, _, iters = lm_fit(res_fn, x, mask, cfg.lm, jac_fn=jac_fn)
+    loss = E.total_energy(spec, assets, cam, obs, weights, vposer_w, gmm,
+                          x_new)
+    return x_new, loss, iters
+
+
+def fit_frame(cfg: FitConfig, assets: SMPLAssets, cam: Camera,
+              obs: Observations, init_params: SMPLParams,
+              init_z: torch.Tensor,
+              vposer_w: Optional[VPoserWeights] = None, gmm=None,
+              img_height=1080.0) -> FitResult:
+    """Fit a batch of frames through the full annealing schedule."""
+    spec = cfg.spec
+    x = E.pack(spec, init_params, init_z if spec.use_vposer else None)
+    B = x.shape[0]
+    h = torch.as_tensor(img_height, dtype=torch.float32, device=x.device)
+    h = h.expand(B) if h.dim() == 0 else h
+
+    losses: List[torch.Tensor] = []
+    iters: List[torch.Tensor] = []
+    for weights in default_stages(cfg, h):
+        x, loss, it = run_stage(cfg, assets, cam, obs, weights, vposer_w,
+                                gmm, x)
+        losses.append(loss)
+        iters.append(it)
+
+    params, z = E.unpack(spec, x)
+    if spec.use_vposer:
+        from ..models import vposer as vposer_lib
+        body_pose = vposer_lib.decode(vposer_w, z)
+    else:
+        body_pose = params.body_pose
+        z = torch.zeros((B, E.LATENT_DIM), dtype=x.dtype, device=x.device)
+    return FitResult(params=params, z=z, body_pose=body_pose,
+                     loss=losses[-1], stage_losses=torch.stack(losses, 1),
+                     lm_iters=torch.stack(iters, 1))

@@ -1,0 +1,151 @@
+"""Synthetic SMPL assets for tests and benchmarks (port of the smpl /
+smpllsp arm of `models/assets.py:synthetic_smpl`).
+
+The geometry is generated by numpy seeded from `seed`, with the same
+draws in the same order as the JAX package, so the arrays are equal.
+Loading the official SMPL pickles (`load_smpl_pkl`) is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..device import DeviceLike, resolve_device
+from . import joints as J
+from .smpl import SMPLAssets
+
+NUM_VERTS = 6890
+NUM_FACES = 13776
+
+
+def _build(raw: dict, model_type: str, gender: str,
+           lsp_regressor: Optional[np.ndarray], pose_format: Optional[str],
+           device: torch.device, dtype=torch.float32) -> SMPLAssets:
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+
+    def idx(a):
+        return torch.as_tensor(np.asarray(a, np.int64), device=device)
+
+    full_shapedirs = np.asarray(raw["shapedirs"], np.float32)
+    posedirs = np.asarray(raw["posedirs"], np.float32)
+    posedirs = posedirs.reshape(-1, posedirs.shape[-1]).T      # (207, V*3)
+    parents = tuple(int(p) for p in np.asarray(raw["kintree_table"])[0])
+    parents = (-1,) + parents[1:]
+    fmt = pose_format or J.pose_format_for_model(model_type)
+    return SMPLAssets(
+        v_template=t(raw["v_template"]),
+        shapedirs=t(full_shapedirs[..., :J.NUM_BETAS]),
+        posedirs=t(posedirs),
+        j_regressor=t(raw["J_regressor"]),
+        lbs_weights=t(raw["weights"]),
+        faces=idx(raw["f"]),
+        extra_joint_ids=idx(J.extra_joint_ids("smplh", False)),
+        joint_map=idx(J.model_to_annotation(model_type, fmt)),
+        lsp_regressor=None if lsp_regressor is None else t(lsp_regressor),
+        parents=parents, model_type=model_type, gender=gender)
+
+
+def synthetic_smpl(model_type: str = "smpl", seed: int = 0,
+                   pose_format: Optional[str] = None,
+                   device: DeviceLike = None) -> SMPLAssets:
+    """Deterministic synthetic SMPL model at full production shapes
+    (6890 vertices, 13776 faces, the real 24-joint tree) with generated
+    geometry: an ellipsoid mesh, a plausible skeleton, distance-based
+    skinning weights and small random blend shapes."""
+    if model_type not in ("smpl", "smpllsp"):
+        J.parents_for_model(model_type)   # raises for SMPL-H/X
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    num_verts = NUM_VERTS
+
+    # UV-sphere grid stretched into a body-like ellipsoid: 2 + 84*82.
+    n_lat, n_lon = 84, 82
+    lat = np.linspace(1e-2, np.pi - 1e-2, n_lat)
+    lon = np.linspace(0, 2 * np.pi, n_lon, endpoint=False)
+    lat_g, lon_g = np.meshgrid(lat, lon, indexing="ij")
+    xs = 0.25 * np.sin(lat_g) * np.cos(lon_g)
+    ys = 0.85 * np.cos(lat_g)
+    zs = 0.15 * np.sin(lat_g) * np.sin(lon_g)
+    grid = np.stack([xs, ys, zs], -1).reshape(-1, 3)
+    poles = np.array([[0.0, 0.9, 0.0], [0.0, -0.9, 0.0]])
+    v_template = np.concatenate([poles, grid], 0).astype(np.float32)
+    assert v_template.shape[0] == num_verts
+
+    def vid(i, j):
+        return 2 + i * n_lon + (j % n_lon)
+
+    tris = []
+    for j in range(n_lon):
+        tris.append([0, vid(0, j), vid(0, j + 1)])
+        tris.append([1, vid(n_lat - 1, j + 1), vid(n_lat - 1, j)])
+    for i in range(n_lat - 1):
+        for j in range(n_lon):
+            a, b = vid(i, j), vid(i, j + 1)
+            c, d = vid(i + 1, j), vid(i + 1, j + 1)
+            tris.append([a, b, c])
+            tris.append([b, d, c])
+    faces = np.asarray(tris, np.int32)[:NUM_FACES]
+
+    joint_pos = np.array([
+        [0.00, 0.00, 0.0],    # pelvis
+        [0.08, -0.05, 0.0],   # L hip
+        [-0.08, -0.05, 0.0],  # R hip
+        [0.00, 0.10, 0.0],    # spine1
+        [0.10, -0.40, 0.0],   # L knee
+        [-0.10, -0.40, 0.0],  # R knee
+        [0.00, 0.22, 0.0],    # spine2
+        [0.09, -0.75, 0.0],   # L ankle
+        [-0.09, -0.75, 0.0],  # R ankle
+        [0.00, 0.30, 0.0],    # spine3
+        [0.11, -0.82, 0.1],   # L foot
+        [-0.11, -0.82, 0.1],  # R foot
+        [0.00, 0.45, 0.0],    # neck
+        [0.08, 0.40, 0.0],    # L collar
+        [-0.08, 0.40, 0.0],   # R collar
+        [0.00, 0.55, 0.0],    # head
+        [0.16, 0.42, 0.0],    # L shoulder
+        [-0.16, 0.42, 0.0],   # R shoulder
+        [0.22, 0.20, 0.0],    # L elbow
+        [-0.22, 0.20, 0.0],   # R elbow
+        [0.24, 0.00, 0.0],    # L wrist
+        [-0.24, 0.00, 0.0],   # R wrist
+        [0.25, -0.06, 0.0],   # L hand
+        [-0.25, -0.06, 0.0],  # R hand
+    ], np.float32)
+    parents = J.parents_for_model(model_type)
+    nj = len(parents)
+
+    # Joint regressor: soft nearest vertices, rows summing to 1.
+    d2 = ((joint_pos[:, None, :] - v_template[None, :, :]) ** 2).sum(-1)
+    jr = np.exp(-d2 / 0.005)
+    j_regressor = (jr / jr.sum(1, keepdims=True)).astype(np.float32)
+    # Skinning weights: softmax over inverse distance to the joints.
+    w = np.exp(-d2.T / 0.02)
+    lbs_weights = (w / w.sum(1, keepdims=True)).astype(np.float32)
+
+    num_pose = 9 * (nj - 1)
+    shapedirs = (0.01 * rng.standard_normal((num_verts, 3, J.NUM_BETAS))
+                 ).astype(np.float32)
+    posedirs = (0.001 * rng.standard_normal((num_pose, num_verts * 3))
+                ).astype(np.float32)
+
+    lsp = None
+    if model_type == "smpllsp":
+        lsp_order = [7, 4, 1, 2, 5, 8, 20, 18, 16, 17, 19, 21, 12, 15]
+        lsp = j_regressor[lsp_order]
+
+    raw = {
+        "v_template": v_template,
+        "shapedirs": shapedirs,
+        "posedirs": posedirs.T.reshape(num_verts, 3, num_pose),
+        "J_regressor": j_regressor,
+        "weights": lbs_weights,
+        "f": faces,
+        "kintree_table": np.stack([np.asarray(parents), np.arange(nj)]),
+    }
+    return _build(raw, model_type, "neutral", lsp, pose_format, dev)

@@ -1,0 +1,121 @@
+"""VPoser pose prior decoder, batched (port of `models/vposer.py`).
+
+z (B, 32) -> fc 512 -> lrelu(0.2) -> fc 512 -> lrelu(0.2) -> fc 138 ->
+23 6D rotations -> matrices -> axis-angle (B, 69).  Only the decoder is
+on the fitting path; the encoder weights are loaded but not used.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..device import DeviceLike, resolve_device
+from ..ops.forward_mode import jacobian_columns
+from ..ops.rotations import matrix_to_axis_angle, sixd_to_matrix
+
+LATENT_DIM = 32
+NUM_JOINTS = 23
+
+
+@dataclasses.dataclass
+class VPoserWeights:
+    dec_fc1_w: torch.Tensor  # (32, 512)  input-major, x @ W
+    dec_fc1_b: torch.Tensor  # (512,)
+    dec_fc2_w: torch.Tensor  # (512, 512)
+    dec_fc2_b: torch.Tensor  # (512,)
+    dec_out_w: torch.Tensor  # (512, 138)
+    dec_out_b: torch.Tensor  # (138,)
+    # Encoder (kept so the bundled npz loads whole; unused by the fit).
+    enc_bn1_mean: Optional[torch.Tensor] = None
+    enc_bn1_var: Optional[torch.Tensor] = None
+    enc_bn1_w: Optional[torch.Tensor] = None
+    enc_bn1_b: Optional[torch.Tensor] = None
+    enc_fc1_w: Optional[torch.Tensor] = None
+    enc_fc1_b: Optional[torch.Tensor] = None
+    enc_bn2_mean: Optional[torch.Tensor] = None
+    enc_bn2_var: Optional[torch.Tensor] = None
+    enc_bn2_w: Optional[torch.Tensor] = None
+    enc_bn2_b: Optional[torch.Tensor] = None
+    enc_fc2_w: Optional[torch.Tensor] = None
+    enc_fc2_b: Optional[torch.Tensor] = None
+    enc_mu_w: Optional[torch.Tensor] = None
+    enc_mu_b: Optional[torch.Tensor] = None
+
+    def to(self, device) -> "VPoserWeights":
+        return VPoserWeights(**{
+            f.name: (None if getattr(self, f.name) is None
+                     else getattr(self, f.name).to(device))
+            for f in dataclasses.fields(self)})
+
+
+def _lrelu(x: torch.Tensor) -> torch.Tensor:
+    return torch.where(x >= 0, x, 0.2 * x)
+
+
+def _tail(o6: torch.Tensor) -> torch.Tensor:
+    """6D (..., 6) -> axis-angle (..., 3)."""
+    return matrix_to_axis_angle(sixd_to_matrix(o6))
+
+
+def decode(weights: VPoserWeights, z: torch.Tensor) -> torch.Tensor:
+    """Decode latent z (..., 32) -> body pose axis-angle (..., 69)."""
+    x = _lrelu(z @ weights.dec_fc1_w + weights.dec_fc1_b)
+    x = _lrelu(x @ weights.dec_fc2_w + weights.dec_fc2_b)
+    x = x @ weights.dec_out_w + weights.dec_out_b
+    aa = _tail(x.reshape(x.shape[:-1] + (NUM_JOINTS, 6)))
+    return aa.reshape(z.shape[:-1] + (NUM_JOINTS * 3,))
+
+
+def mlp_head(w: VPoserWeights, z: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MLP forward and its factored Jacobian: z (B, 32) ->
+    o (B, 138), Do (B, 138, 32).  Plain matmuls (fp32, TF32 off)."""
+    h1p = z @ w.dec_fc1_w + w.dec_fc1_b
+    g1 = torch.where(h1p >= 0, 1.0, 0.2).to(z.dtype)
+    h1 = torch.where(h1p >= 0, h1p, 0.2 * h1p)
+    h2p = h1 @ w.dec_fc2_w + w.dec_fc2_b
+    g2 = torch.where(h2p >= 0, 1.0, 0.2).to(z.dtype)
+    h2 = torch.where(h2p >= 0, h2p, 0.2 * h2p)
+    o = h2 @ w.dec_out_w + w.dec_out_b                    # (B, 138)
+    D1 = g1[:, :, None] * w.dec_fc1_w.T[None]             # (B, 512, 32)
+    D2 = g2[:, :, None] * torch.matmul(w.dec_fc2_w.T, D1)
+    Do = torch.matmul(w.dec_out_w.T, D2)                  # (B, 138, 32)
+    return o, Do
+
+
+def tail_jac(o: torch.Tensor, Do: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The decoder tail and its Jacobian composed with the MLP's:
+    o (B, 138), Do (B, 138, 32) -> (body_pose (B, 69), D (B, 69, 32)).
+
+    The tail's 6 derivative columns per joint are forward mode through
+    the same 6D -> matrix -> axis-angle graph `decode` runs.
+    """
+    B = o.shape[0]
+    o6 = o.reshape(B * NUM_JOINTS, 6)
+    aa = _tail(o6)                                          # (B*23, 3)
+    Jt = jacobian_columns(_tail, o6)                        # (B*23, 3, 6)
+    D = torch.einsum("jab,jbZ->jaZ", Jt,
+                     Do.reshape(B * NUM_JOINTS, 6, -1))
+    return (aa.reshape(B, NUM_JOINTS * 3),
+            D.reshape(B, NUM_JOINTS * 3, -1))
+
+
+def decode_jac(weights: VPoserWeights, z: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """z (B, 32) -> (body_pose (B, 69), d body_pose / d z (B, 69, 32))."""
+    o, Do = mlp_head(weights, z)
+    return tail_jac(o, Do)
+
+
+def load_npz(path: str, device: DeviceLike = None,
+             dtype=torch.float32) -> VPoserWeights:
+    dev = resolve_device(device)
+    with np.load(path) as d:
+        kw = {k: torch.as_tensor(np.asarray(d[k]), dtype=dtype, device=dev)
+              for k in d.files}
+    return VPoserWeights(**kw)

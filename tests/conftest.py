@@ -28,6 +28,11 @@ import pytest  # noqa: E402
 REFERENCE_DATA = "/root/reference/data"
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA GPU; skips without one")
+
+
 @pytest.fixture(scope="session")
 def demo_data_dir():
     if not os.path.isdir(REFERENCE_DATA):

@@ -1,0 +1,87 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a GPU.
+
+Needs a CUDA card and imports neither JAX nor the JAX package, so it
+also runs where JAX is not installed (the conftest, which imports JAX,
+can be left out):
+
+    python -m pytest --noconftest -p no:cacheprovider \
+        tests/test_torch_cuda.py -q
+
+Without a GPU every test skips.  Tolerances are the kernel ones: RTOL
+3e-5 / ATOL 1e-5 (fp32 reassociation); the VPoser D block at rtol 3e-4 /
+atol 3e-4 max|D|.  B=130 is not a multiple of the tail kernel's
+4-frame blocks, so the ragged last block is covered.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mvsmplfitting_tpu_torch.models import vposer as V
+from mvsmplfitting_tpu_torch.ops import joint_kernel as JK
+from mvsmplfitting_tpu_torch.ops import vposer_kernel as VK
+from mvsmplfitting_tpu_torch.synthetic import VPOSER_NPZ
+
+from torch_port_helpers import port_assets, rand_joint_inputs
+
+RTOL = 3e-5
+ATOL = 1e-5
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_type", ["smpl", "smpllsp"])
+def test_joint_jacobian_kernel_on_card(cuda_device, model_type):
+    jm = port_assets(model_type).joint_model.to(cuda_device)
+    theta, betas, scale = (torch.from_numpy(a).to(cuda_device)
+                           for a in rand_joint_inputs(
+                               np.random.default_rng(4), 130))
+    before = JK.LAUNCHES
+    gj, gb = JK.joint_jacobian_batched(jm, theta, betas, scale)
+    torch.cuda.synchronize()
+    assert JK.LAUNCHES == before + 1
+    wj, wb = JK.joint_jacobian_plain(jm, theta, betas, scale)
+    torch.testing.assert_close(gj, wj, rtol=RTOL, atol=ATOL)
+    for k in wb:
+        torch.testing.assert_close(gb[k], wb[k], rtol=RTOL, atol=ATOL,
+                                   msg=f"{model_type} block {k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma", [0.6, 1e-3])
+def test_vposer_tail_kernel_on_card(cuda_device, sigma):
+    w = V.load_npz(VPOSER_NPZ, device=cuda_device)
+    z = torch.from_numpy(np.random.default_rng(5).normal(
+        0, sigma, (130, 32)).astype(np.float32)).to(cuda_device)
+    before = VK.LAUNCHES
+    aa1, D1 = VK.decode_jac_batched(w, z)
+    torch.cuda.synchronize()
+    assert VK.LAUNCHES == before + 1
+    aa0, D0 = V.decode_jac(w, z)
+    torch.testing.assert_close(aa1, aa0, rtol=RTOL, atol=ATOL)
+    sc = max(D0.abs().max().item(), 1.0)
+    torch.testing.assert_close(D1, D0, rtol=3e-4, atol=3e-4 * sc)
+
+
+@pytest.mark.cuda
+def test_cuda_tensors_never_take_the_plain_path(cuda_device, monkeypatch):
+    """On the card the wrappers launch the kernels: the plain versions
+    must not be reached."""
+    def refuse(*a, **k):
+        raise AssertionError("plain version reached with CUDA tensors")
+    monkeypatch.setattr(JK, "joint_jacobian_plain", refuse)
+    monkeypatch.setattr(VK, "tail_plain", refuse)
+    jm = port_assets("smpl").joint_model.to(cuda_device)
+    theta, betas, scale = (torch.from_numpy(a).to(cuda_device)
+                           for a in rand_joint_inputs(
+                               np.random.default_rng(6), 4))
+    JK.joint_jacobian_batched(jm, theta, betas, scale)
+    w = V.load_npz(VPOSER_NPZ, device=cuda_device)
+    VK.decode_jac_batched(w, torch.zeros((4, 32), device=cuda_device))
+    torch.cuda.synchronize()

@@ -1,0 +1,167 @@
+"""Where the time of the PyTorch port's batched fit goes, on one GPU.
+
+    python3 tools/profile_torch_fit.py [--frames 512] [--iters 40]
+
+Runs the port's main path (`batched_fit_frames`, 6 views, smpl, library
+defaults) once to warm up, then once timed without the profiler and
+once under `torch.profiler`, with the fit's layers wrapped in
+`record_function` ranges (by patching module attributes here; the
+package itself carries no instrumentation).  Prints, one JSON object
+per line: the card, the timed run (wall, frames/s, LM iterations, wall
+per iteration), the device-busy share of the profiled run (sum of the
+device kernels' and copies' times over its wall), the device time by
+kernel category, the top device kernels, and host time per layer
+range.  `--trace PATH` also writes the Chrome trace.
+"""
+
+from __future__ import annotations
+
+import argparse
+import functools
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+LAYERS = (
+    ("fitting.energy", "residual_jacobian"),
+    ("fitting.energy", "residuals"),
+    ("fitting.energy", "total_energy"),
+    ("fitting.energy", "_analytic_core"),
+    ("fitting.lm", "_normal_step"),
+    ("ops.vposer_kernel", "decode_jac_batched"),
+    ("ops.joint_kernel", "joint_jacobian_batched"),
+    ("fitting.initialize", "init_guess"),
+)
+
+
+def _wrap_layers():
+    import importlib
+    for mod_name, fn_name in LAYERS:
+        mod = importlib.import_module("mvsmplfitting_tpu_torch." + mod_name)
+        fn = getattr(mod, fn_name)
+
+        def wrapped(*a, __fn=fn, __name=f"{mod_name}.{fn_name}", **kw):
+            with record_function(__name):
+                return __fn(*a, **kw)
+        functools.update_wrapper(wrapped, fn)
+        setattr(mod, fn_name, wrapped)
+    # Modules that imported a layer by name keep their own reference.
+    from mvsmplfitting_tpu_torch.parallel import batched
+    from mvsmplfitting_tpu_torch.fitting import initialize
+    batched.init_guess = initialize.init_guess
+
+
+def _category(name: str) -> str:
+    if "joint_jacobian_kernel" in name:
+        return "joint_jacobian kernel"
+    if "vposer_tail_kernel" in name:
+        return "vposer_tail kernel"
+    low = name.lower()
+    if "gemm" in low or "gemv" in low or "cutlass" in low or "dot" in low:
+        return "matmul (cuBLAS)"
+    if "reduce" in low:
+        return "reductions"
+    if "elementwise" in low or "vectorized" in low or "unrolled" in low:
+        return "elementwise"
+    if "memcpy" in low or "memset" in low:
+        return "copies"
+    return "other"
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--frames", type=int, default=512)
+    ap.add_argument("--iters", type=int, default=40)
+    ap.add_argument("--trace", default=None,
+                    help="write the Chrome trace of the profiled fit here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_fit: needs a CUDA GPU", file=sys.stderr)
+        return 2
+
+    _wrap_layers()
+    from mvsmplfitting_tpu_torch.device import resolve_device
+    from mvsmplfitting_tpu_torch.fitting.lm import LMOptions
+    from mvsmplfitting_tpu_torch.fitting.stages import FitConfig
+    from mvsmplfitting_tpu_torch.parallel.batched import (
+        BatchedFitInputs, batched_fit_frames)
+    from mvsmplfitting_tpu_torch.synthetic import make_problem
+
+    dev = resolve_device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print(json.dumps({"card": card, "torch": torch.__version__}), flush=True)
+
+    B = args.frames
+    assets, vw, cam, obs = make_problem(6, B, seed=0, device=dev)
+    batch = BatchedFitInputs(obs, torch.full((B,), 1080.0, device=dev))
+    cfg = FitConfig(lm=LMOptions(max_iters=args.iters))
+
+    def fit():
+        res = batched_fit_frames(cfg, assets, cam, batch, vposer_w=vw,
+                                 device=dev)
+        torch.cuda.synchronize()
+        return res
+
+    fit()                                                  # warm-up
+    t0 = time.perf_counter()
+    res = fit()
+    wall = time.perf_counter() - t0
+    iters = int(res.lm_iters.amax(dim=0).sum().item())
+    print(json.dumps({"timed": {
+        "frames": B, "wall_s": wall, "fps": B / wall, "lm_iterations": iters,
+        "ms_per_iteration": 1e3 * wall / iters,
+        "final_loss_mean": float(res.loss.mean().item())}}), flush=True)
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fit()
+        prof_wall = time.perf_counter() - t0
+    events = prof.key_averages()
+
+    def dev_self(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    layer_names = {f"{m}.{f}" for m, f in LAYERS}
+    # Device activity (kernels, copies) has no host time of its own; the
+    # host ops that launched it and the layer ranges are left out.
+    kernels = [e for e in events if dev_self(e) > 0
+               and e.cpu_time_total == 0 and e.key not in layer_names]
+    busy_us = sum(dev_self(e) for e in kernels)
+    cats = {}
+    for e in kernels:
+        c = _category(e.key)
+        cats[c] = cats.get(c, 0.0) + dev_self(e)
+    print(json.dumps({"profiled": {
+        "wall_s": prof_wall, "device_busy_s": busy_us / 1e6,
+        "device_busy_share": busy_us / 1e6 / prof_wall,
+        "device_ms_by_category": {k: v / 1e3 for k, v in sorted(
+            cats.items(), key=lambda kv: -kv[1])}}}), flush=True)
+    top = sorted(kernels, key=lambda e: -dev_self(e))[:15]
+    print(json.dumps({"top_device_ops": [
+        {"name": e.key[:90], "device_ms": dev_self(e) / 1e3,
+         "calls": e.count} for e in top]}), flush=True)
+    print(json.dumps({"layers": [
+        {"name": e.key, "calls": e.count,
+         "host_ms": e.cpu_time_total / 1e3}
+        for e in events if e.key in layer_names
+        and e.cpu_time_total > 0]}), flush=True)
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
