@@ -5,8 +5,9 @@
 Phases (each prints one line; any failure exits non-zero):
   1. device and environment: torch version, card name and power limit,
      TF32 off;
-  2. build: both CUDA kernels from `mvsmplfitting_tpu_torch/csrc` with
-     nvcc for sm_90a, in parallel, with the seconds it took;
+  2. build: the four CUDA sources of `mvsmplfitting_tpu_torch/csrc` with
+     nvcc for sm_90a, one process each, all at once, with the seconds it
+     took and ptxas's register lines;
   3. kernels at B=512: each kernel against its plain PyTorch version on
      the card (joint Jacobian for smpl and smpllsp at RTOL 3e-5 / ATOL
      1e-5; VPoser tail at z~N(0,0.6) and z~N(0,1e-3), aa at 3e-5 / 1e-5,
@@ -19,7 +20,29 @@ Phases (each prints one line; any failure exits non-zero):
   5. the slice at full width: `batched_fit_frames` on 512 distinct
      synthetic frames (6 views, smpl, library defaults, max_iters=40),
      launch counters reset just before and read just after;
-then the card line, the kernels JSON line and the result line.
+  6. [sdf] the three voxelizer kernels on two posed synthetic bodies
+     (VPoser z ~ N(0, 0.8)), normalized as `person_grids` does:
+     at G=64 both against the plain `sdf_grid` on the card (the same
+     inside set, phi within atol 1e-5, voxels that differ bitwise
+     counted), the two-phase result bitwise equal to the brute force at
+     G=64 and G=128, device times per call, bounds from the pairs each
+     kernel evaluates;
+  7. [collide] the single-person fit with the collision term
+     (`batched_fit_frames`, coll weights (0, 0, 1000, 4500), G=128, 8
+     frames, library defaults, max_iters=20), then card-vs-CPU parity
+     of one collision-stage linearization on 2 frames at G=16 (grids:
+     the same inside set, atol 1e-5; rows rtol 1e-5, J.v rtol 1e-4,
+     energy rtol 1e-5);
+  8. [multi] `fit_people` with the grid engine and the hybrid schedule
+     on the two-person fixture (dx0=0.2) at G=128 with the weights of
+     `cfg_files/fit_multi_person_sdf.yaml` and `session.py`'s LM defaults
+     (max_iters=60): collision sums after the solo fits and after the
+     refinement (which must be lower), voxelizer launches and event-timed
+     seconds; then card-vs-CPU parity at G=16 (2 stages of 3 chol
+     iterations at init_lambda 1.0, 1 lagged + 1 exact refinement
+     iteration; losses at rtol 1e-2, sums at rtol 5e-2);
+then the card line, the kernels JSON line and the result line.  Each
+path's launch counters are set to 0 just before it and read just after.
 """
 
 from __future__ import annotations
@@ -37,6 +60,9 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 B_KERNEL = 512
 B_FIT = 512
+B_COLLIDE = 8
+G_FIT = 128            # the reference's production grid (fitting.py:374)
+G_CHECK = 64           # the grid of the kernel-vs-plain check
 
 
 def log(phase: str, **kw) -> None:
@@ -121,6 +147,356 @@ def vposer_tail_work(B: int):
     nbytes = 4.0 * B * (138 + 138 * 32 + 69 + 69 * 32)
     flops = 2.0 * B * 69 * 32 * 6 + B * 23 * 90 * 14
     return nbytes, flops
+
+
+def event_ms(fn) -> float:
+    """Milliseconds of one call between two CUDA events, host waits
+    included (for the plain versions, which synchronize inside)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def sdf_work(SK, tri: torch.Tensor, G: int, work=None):
+    """(bytes, operations) per kernel for triangles (M, F, 9) at G: each
+    input read once, each output written once; operations over the
+    (voxel, triangle) pairs each kernel evaluates: all of them for the
+    brute force, those the ny prefix and zmask admit for phase A, and
+    for phase B those of the chunks each flagged tile visited (the
+    kernel's own visit counts, `work` of `sdf_grid_fast_cuda`)."""
+    M, F = tri.shape[:2]
+    N = G ** 3
+    out = {"sdf_grid": (4.0 * (tri.numel() + M * N),
+                        float(M * N * F * (SK.DIST_OPS + SK.CROSS_OPS)))}
+    if work is None:
+        return out
+    tb = work["tables"]
+    T, nc = tb.T, tb.nc
+    dev = tri.device
+    nf = torch.clamp(F - torch.arange(nc, device=dev) * SK.CHUNK,
+                     max=SK.CHUNK).double()                     # (nc,)
+    lanes = torch.clamp(G * G - torch.arange(T, device=dev) * SK.TILE,
+                        max=SK.TILE).double()                   # (T,)
+    c = torch.arange(nc, device=dev)
+    admitted = ((c[None, None, :] < tb.ny[:, :, None])[:, None]
+                & (tb.zmask[:, :, None, :] > 0))                # (M,G,T,nc)
+    pairs_a = ((admitted.double() @ nf) * lanes).sum().item()
+    visits = work["visits"].reshape(M, G, T)
+    walked = (torch.arange(nc + 1, device=dev)[None, None, None, :]
+              < visits[..., None])                              # (M,G,T,nc+1)
+    faces = torch.cat([nf, nf.new_zeros(1)])[tb.order.long()]   # (M,G*T,nc+1)
+    pairs_b = ((walked.reshape(M, G * T, nc + 1).double() * faces).sum(-1)
+               .reshape(M, G, T) * lanes).sum().item()
+    idx = 4.0 * (tb.ny.numel() + tb.zmask.numel())
+    out["sdf_cross"] = (4.0 * (tri.numel() + M * N + M * G * T) + idx,
+                        pairs_a * SK.CROSS_OPS)
+    out["sdf_dist"] = (4.0 * (tri.numel() + 2 * M * N + 2 * M * G * T
+                              + tb.order.numel() + tb.lb2.numel()),
+                       pairs_b * SK.DIST_OPS)
+    return out
+
+
+def sdf_phase(dev, kernels: dict) -> None:
+    """[sdf]: the voxelizer kernels against the plain version and each
+    other, their device times and bounds (see the module docstring)."""
+    from mvsmplfitting_tpu_torch.models import vposer as V
+    from mvsmplfitting_tpu_torch.models.smpl import SMPLParams, smpl_forward
+    from mvsmplfitting_tpu_torch.ops import cuda_build
+    from mvsmplfitting_tpu_torch.ops import sdf as S
+    from mvsmplfitting_tpu_torch.ops import sdf_kernel as SK
+    from mvsmplfitting_tpu_torch.synthetic import make_people_problem
+
+    assets, vw, _, _ = make_people_problem(0.2, device=dev)
+    z = np.random.default_rng(3).normal(0, 0.8, (2, 32)).astype(np.float32)
+    params = SMPLParams.zeros(2, device=dev)
+    body_pose = V.decode(vw, torch.as_tensor(z, device=dev))
+    verts, _ = smpl_forward(assets, params, body_pose)
+    centers, scales = S.box_frame(verts)
+    local = ((verts - centers[:, None]) / scales[:, None, None]).contiguous()
+    faces = assets.faces
+    tri = S.triangles(local, faces)
+    cross_fn, dist_fn = SK.bind_fast(cuda_build.load("sdf_grid_fast"))
+    grid_fn = SK.bind_grid(cuda_build.load("sdf_grid"))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    timing = {}
+    for G in (G_CHECK, G_FIT):
+        b3 = SK.sdf_grid_cuda(tri, G)
+        b4, work = SK.sdf_grid_fast_cuda(tri, G, with_work=True)
+        torch.cuda.synchronize()
+        assert torch.equal(b4, b3), f"G={G}: two-phase != brute force"
+        kept = []
+        plain_ms = event_ms(lambda: kept.append(S.sdf_grid(local, faces, G)))
+        plain = kept[0]
+        inside = int((plain > 0).sum())
+        assert inside > G, f"G={G}: only {inside} inside voxels"
+        assert torch.equal(b3 > 0, plain > 0), f"G={G}: inside sets differ"
+        err = (b3 - plain).abs().max().item()
+        assert err <= 1e-5, f"G={G}: |phi - plain| = {err}"
+        ndiff = int((b3 != plain).sum())
+        tb = work["tables"]
+        inside_t, flags = SK.call_cross(cross_fn, tb, stream)
+        reps = 3 if G == G_FIT else 10
+        ms = {
+            "sdf_grid": cuda_ms(lambda: SK.call_grid(grid_fn, tri, G, stream),
+                                reps=reps, warmup=1),
+            "sdf_cross": cuda_ms(lambda: SK.call_cross(cross_fn, tb, stream),
+                                 reps=reps, warmup=1),
+            "sdf_dist": cuda_ms(lambda: SK.call_dist(dist_fn, tb, inside_t,
+                                                     flags, stream),
+                                reps=reps, warmup=1),
+            "whole": cuda_ms(lambda: SK.sdf_grid_fast_cuda(tri, G),
+                             reps=reps, warmup=1)}
+        bounds = {k: bound_ms(*v) for k, v in sdf_work(SK, tri, G,
+                                                        work).items()}
+        visited = work["visits"].sum().item()
+        log("sdf", G=G, meshes=tri.shape[0], faces=tri.shape[1],
+            inside_voxels=inside, b4_equals_b3="bitwise",
+            max_abs_err_vs_plain=f"{err:.3e}", voxels_not_bitwise=ndiff,
+            flagged_tiles=int(flags.sum()), tiles=flags.numel(),
+            chunks_visited=int(visited),
+            b3_ms=f"{ms['sdf_grid']:.4f}", b4a_ms=f"{ms['sdf_cross']:.4f}",
+            b4b_ms=f"{ms['sdf_dist']:.4f}", b4_ms=f"{ms['whole']:.4f}",
+            plain_ms=f"{plain_ms:.1f}",
+            bounds_ms=json.dumps({k: round(v[0], 5)
+                                  for k, v in bounds.items()}).replace(" ",
+                                                                        ""))
+        timing[G] = (ms, plain_ms, bounds, err)
+    ms, plain_ms, bounds, err = timing[G_FIT]   # the fits' grid size
+    for name, label, line in (
+            ("sdf_grid", "sdf_grid.cu", ":599"),
+            ("sdf_cross", "sdf_grid_fast.cu", ":798"),
+            ("sdf_dist", "sdf_grid_fast.cu", ":888")):
+        kernels[name] = dict(
+            name=name, route="cuda",
+            source=f"mvsmplfitting_tpu_torch/csrc/{label}",
+            replaces=f"mvsmplfitting_tpu/ops/sdf.py{line}",
+            max_abs_err=err, ms=ms[name], plain_ms=plain_ms,
+            bound_ms=bounds[name][0], bound_by=bounds[name][1],
+            library_ms=None)
+
+
+class VoxelizerClock:
+    """Event-timed device seconds inside `sdf_grid_fast_cuda` (tables and
+    both kernels), by wrapping it for the length of a `with` block."""
+
+    def __init__(self, SK):
+        self.SK = SK
+        self.pairs = []
+
+    def __enter__(self):
+        inner = self.orig = self.SK.sdf_grid_fast_cuda
+
+        def timed(*a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = inner(*a, **k)
+            end.record()
+            self.pairs.append((start, end))
+            return out
+        self.SK.sdf_grid_fast_cuda = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.SK.sdf_grid_fast_cuda = self.orig
+
+    def seconds(self) -> float:
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.pairs) / 1e3
+
+
+def reset_launches(JK, VK, SK) -> None:
+    JK.LAUNCHES = 0
+    VK.LAUNCHES = 0
+    for k in SK.LAUNCHES:
+        SK.LAUNCHES[k] = 0
+
+
+def read_launches(JK, VK, SK) -> dict:
+    return {"joint_jacobian": JK.LAUNCHES, "vposer_tail": VK.LAUNCHES,
+            **SK.LAUNCHES}
+
+
+def collide_phase(dev, launches: dict) -> None:
+    """[collide]: the single-person fit with the collision term on."""
+    from mvsmplfitting_tpu_torch.fitting.energy import EnergySpec
+    from mvsmplfitting_tpu_torch.fitting.lm import LMOptions
+    from mvsmplfitting_tpu_torch.fitting.stages import FitConfig
+    from mvsmplfitting_tpu_torch.ops import joint_kernel as JK
+    from mvsmplfitting_tpu_torch.ops import sdf_kernel as SK
+    from mvsmplfitting_tpu_torch.ops import vposer_kernel as VK
+    from mvsmplfitting_tpu_torch.parallel.batched import (
+        BatchedFitInputs, batched_fit_frames)
+    from mvsmplfitting_tpu_torch.synthetic import make_problem
+
+    B = B_COLLIDE
+    cfg = FitConfig(spec=EnergySpec(interpenetration=True,
+                                    coll_grid_size=G_FIT),
+                    coll_weights=(0.0, 0.0, 1000.0, 4500.0),
+                    lm=LMOptions(max_iters=20))
+    assets, vw, cam, obs = make_problem(6, B, seed=0, device=dev)
+    batch = BatchedFitInputs(obs, torch.full((B,), 1080.0, device=dev))
+    torch.cuda.synchronize()
+    reset_launches(JK, VK, SK)
+    with VoxelizerClock(SK) as clock:
+        t0 = time.perf_counter()
+        res = batched_fit_frames(cfg, assets, cam, batch, vposer_w=vw,
+                                 device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    got = read_launches(JK, VK, SK)
+    assert res.stage_losses.shape == (B, 4)
+    assert bool(torch.isfinite(res.stage_losses).all()), "non-finite loss"
+    assert got["sdf_cross"] > 0 and got["sdf_dist"] > 0, got
+    launches["collide"] = got
+    log("collide", frames=B, grid=G_FIT, wall_s=f"{wall:.3f}",
+        voxelizer_s=f"{clock.seconds():.3f}", voxelizer_calls=len(clock.pairs),
+        lm_iterations=json.dumps(res.lm_iters.amax(0).tolist()).replace(
+            " ", ""),
+        stage_losses_mean=json.dumps([round(v, 3) for v in
+                                      res.stage_losses.mean(0).tolist()]
+                                     ).replace(" ", ""),
+        launches=json.dumps(got).replace(" ", ""))
+
+    # Parity: one collision-stage linearization at a fixed x, on the card
+    # and on the CPU plain path (G=16, stage-4 weights).  Not a fit: at
+    # these weights a 1e-6 change of the inputs moves a 3-iteration fit's
+    # stage-4 loss by 16-160% (PERF.md, section 6), so trajectories cannot be
+    # compared; the grids, rows, Jacobian and energy can.
+    from mvsmplfitting_tpu_torch.fitting import energy as E
+    from mvsmplfitting_tpu_torch.fitting.stages import (default_stages,
+                                                         stage_jacobian)
+    from mvsmplfitting_tpu_torch.synthetic import true_params
+    z, cols = true_params(2, seed=1)
+    rng = np.random.default_rng(5)
+    x = np.concatenate([z, cols["betas"], cols["global_orient"],
+                        cols["transl"], cols["scale"][:, None]], 1)
+    x = (x + rng.normal(0, 0.02, x.shape)).astype(np.float32)
+    v = rng.normal(0, 1.0, (2,) + x.shape).astype(np.float32)
+    cfg16 = FitConfig(spec=EnergySpec(interpenetration=True,
+                                      coll_grid_size=16),
+                      coll_weights=(0.0, 0.0, 1000.0, 4500.0))
+    out = {}
+    for name in ("cuda", "cpu"):
+        d = dev if name == "cuda" else torch.device("cpu")
+        assets, vw, cam, obs = make_problem(6, 2, seed=1, device=d)
+        weights = default_stages(cfg16, torch.full((2,), 1080.0,
+                                                    device=d))[3]
+        xt = torch.as_tensor(x, device=d)
+        phi = E.collision_grids(cfg16.spec, assets, vw, xt)[0]
+        r, J = stage_jacobian(cfg16, assets, cam, obs, weights, vw,
+                              None)(xt)
+        e = E.total_energy(cfg16.spec, assets, cam, obs, weights, vw, None,
+                           xt)
+        Jv = torch.einsum("bmn,kbn->kbm", J, torch.as_tensor(v, device=d))
+        out[name] = [t.cpu() for t in (phi, r, Jv, e)]
+    (phi1, r1, Jv1, e1), (phi0, r0, Jv0, e0) = out["cuda"], out["cpu"]
+    # The vertices differ by fp32 rounding between the card's and the
+    # CPU's LBS, so the grids agree to the voxelizer test's tolerance.
+    assert torch.equal(phi1 > 0, phi0 > 0), "inside sets differ"
+    torch.testing.assert_close(phi1, phi0, rtol=0.0, atol=1e-5)
+    torch.testing.assert_close(r1, r0, rtol=1e-5,
+                               atol=1e-5 * r0.abs().max().item())
+    torch.testing.assert_close(Jv1, Jv0, rtol=1e-4,
+                               atol=1e-4 * Jv0.abs().max().item())
+    torch.testing.assert_close(e1, e0, rtol=1e-5, atol=0.0)
+    log("collide", parity_frames=2, grid=16,
+        grids_max_abs=f"{(phi1 - phi0).abs().max().item():.3e}",
+        collision_rows=json.dumps([round(t, 3) for t in
+                                   r0[:, -1].tolist()]).replace(" ", ""),
+        rows_max_rel=f"{((r1 - r0).abs().max() / r0.abs().max()).item():.3e}",
+        jv_max_rel=f"{((Jv1 - Jv0).abs().max() / Jv0.abs().max()).item():.3e}",
+        energy_max_rel=f"{((e1 - e0).abs() / e0.abs()).max().item():.3e}",
+        tolerance="rows 1e-5, J.v 1e-4, energy 1e-5")
+
+
+def multi_phase(dev, launches: dict) -> None:
+    """[multi]: the two-person grid-engine fit with the hybrid schedule."""
+    from mvsmplfitting_tpu_torch.fitting.energy import EnergySpec
+    from mvsmplfitting_tpu_torch.fitting.lm import LMOptions
+    from mvsmplfitting_tpu_torch.fitting.multi_person import fit_people
+    from mvsmplfitting_tpu_torch.fitting.stages import FitConfig
+    from mvsmplfitting_tpu_torch.models import vposer as V
+    from mvsmplfitting_tpu_torch.models.smpl import smpl_forward
+    from mvsmplfitting_tpu_torch.ops import joint_kernel as JK
+    from mvsmplfitting_tpu_torch.ops import sdf as S
+    from mvsmplfitting_tpu_torch.ops import sdf_kernel as SK
+    from mvsmplfitting_tpu_torch.ops import vposer_kernel as VK
+    from mvsmplfitting_tpu_torch.synthetic import make_people_problem
+
+    G = G_FIT
+    # cfg_files/fit_multi_person_sdf.yaml's weights; session.py's LM
+    # defaults (max_iters = max(60, 2 * maxiters)).
+    cfg = FitConfig(spec=EnergySpec(interpenetration=True, coll_grid_size=G),
+                    pose_weights=(404.0, 404.0, 57.4, 4.78),
+                    shape_weights=(100.0, 50.0, 10.0, 5.0),
+                    coll_weights=(0.0, 0.0, 1000.0, 4500.0),
+                    lm=LMOptions(max_iters=60))
+    assets, vw, cam, obs = make_people_problem(0.2, device=dev)
+
+    def sums_of(r):
+        verts, _ = smpl_forward(assets, r.params, V.decode(vw, r.z))
+        return S.collision_sums(verts, assets.faces, G)
+
+    solo, _ = fit_people(cfg, assets, cam, obs, vposer_w=vw,
+                         refine_collision=False, sdf_engine="grid",
+                         device=dev)
+    s_solo = sums_of(solo)
+    torch.cuda.synchronize()
+    reset_launches(JK, VK, SK)
+    with VoxelizerClock(SK) as clock:
+        t0 = time.perf_counter()
+        res, s_ref = fit_people(cfg, assets, cam, obs, vposer_w=vw,
+                                sdf_engine="grid", device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    got = read_launches(JK, VK, SK)
+    assert bool(torch.isfinite(res.loss).all()), "non-finite loss"
+    assert bool(torch.isfinite(s_ref).all()), "non-finite sums"
+    assert float(s_ref.sum()) < float(s_solo.sum()), (s_solo, s_ref)
+    assert got["sdf_cross"] > 0 and got["sdf_dist"] > 0, got
+    launches["multi"] = got
+    log("multi", people=2, grid=G, schedule="hybrid(12+5)",
+        wall_s=f"{wall:.3f}", voxelizer_s=f"{clock.seconds():.3f}",
+        voxelizer_calls=len(clock.pairs),
+        per_person_loss=json.dumps([round(v, 3) for v in
+                                    res.loss.tolist()]).replace(" ", ""),
+        sums_solo=json.dumps([round(v, 4) for v in
+                              s_solo.tolist()]).replace(" ", ""),
+        sums_refined=json.dumps([round(v, 4) for v in
+                                 s_ref.tolist()]).replace(" ", ""),
+        refine_lm_iterations=int(res.lm_iters[0, 0]),
+        launches=json.dumps(got).replace(" ", ""))
+
+    short = FitConfig(spec=EnergySpec(interpenetration=True,
+                                      coll_grid_size=16),
+                      pose_weights=(404.0, 57.4), shape_weights=(100.0, 10.0),
+                      coll_weights=(0.0, 1000.0),
+                      lm=LMOptions(max_iters=3, linsolve="chol",
+                                   speculative=False, init_lambda=1.0))
+    out = {}
+    for name in ("cuda", "cpu"):
+        d = dev if name == "cuda" else "cpu"
+        a, w, c, o = make_people_problem(0.2, device=d)
+        r, s = fit_people(short, a, c, o, vposer_w=w, sdf_engine="grid",
+                          refine_iters=1, polish_iters=1, device=d)
+        out[name] = (r.loss.cpu(), s.cpu())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-2,
+                               atol=0.0)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=5e-2,
+                               atol=0.0)
+    rel_l = ((out["cuda"][0] - out["cpu"][0]).abs()
+             / out["cpu"][0].abs()).max().item()
+    rel_s = ((out["cuda"][1] - out["cpu"][1]).abs()
+             / out["cpu"][1].abs()).max().item()
+    log("multi", parity_people=2, grid=16, loss_max_rel=f"{rel_l:.3e}",
+        sums_max_rel=f"{rel_s:.3e}", tolerance="losses rtol 1e-2, sums 5e-2")
 
 
 def main() -> int:
@@ -285,6 +661,16 @@ def main() -> int:
         launches=json.dumps(launches).replace(" ", ""))
     for name in kernels:
         kernels[name]["launches"] = launches[name]
+
+    # ---- 6-8. the collision slice ------------------------------------
+    sdf_phase(dev, kernels)
+    path = {}
+    collide_phase(dev, path)
+    multi_phase(dev, path)
+    kernels["sdf_grid"]["launches"] = 0     # off the fits' path
+    for name in ("sdf_cross", "sdf_dist"):
+        kernels[name]["launches"] = (path["collide"][name]
+                                     + path["multi"][name])
 
     log("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(card_line(), flush=True)

@@ -1,0 +1,134 @@
+// Per-pair arithmetic of the SDF voxelizers, shared by csrc/sdf_grid.cu
+// (brute force) and csrc/sdf_grid_fast.cu (two phases, culled).
+//
+// Both sources include this header and are compiled with -fmad=false
+// and without fast math, so every +, -, *, / and sqrtf below rounds
+// once, in IEEE single precision, in the order written.  The plain
+// PyTorch version (mvsmplfitting_tpu_torch/ops/sdf.py: _pair_dist_sq,
+// _pair_crossing, voxel_line) runs the same operations in the same
+// order, one tensor operation at a time.  So the two kernels agree
+// bitwise with each other and with the plain version: the parity ray
+// can graze a shared edge, and a different rounding there flips a voxel.
+//
+// Operations per (voxel, triangle) pair, counted from the code below
+// (each add, subtract, multiply, divide and compare counts one; selects
+// do not):
+//   distance  sdf_pair_dist_sq  116 = 89 arithmetic (5 of them divides)
+//             + 26 compares + the running minimum
+//   crossing  sdf_pair_crossing  60 = 52 arithmetic (1 divide)
+//             + 7 compares + the count
+// ops/sdf_kernel.py holds them as DIST_OPS and CROSS_OPS for the bounds
+// that chip_smoke.py computes.
+#pragma once
+
+constexpr int SDF_THREADS = 128;  // voxels per block, one per thread
+constexpr int SDF_CHUNK = 128;    // triangles staged per step (9 floats each)
+constexpr float SDF_FAR_D2 = 1e6f;
+
+// Voxel-center coordinate -1 + (i + 0.5) * dx (dx = 2/(G-1) in fp32).
+__device__ __forceinline__ float sdf_coord(int i, float dx) {
+  return -1.0f + ((float)i + 0.5f) * dx;
+}
+
+__device__ __forceinline__ float sdf_dot3(float ux, float uy, float uz,
+                                          float vx, float vy, float vz) {
+  return ux * vx + uy * vy + uz * vz;
+}
+
+__device__ __forceinline__ float sdf_safe_div(float a, float b) {
+  return a / (fabsf(b) > 1e-30f ? b : 1e-30f);
+}
+
+__device__ __forceinline__ float sdf_clamp01(float x) {
+  return x < 0.0f ? 0.0f : (x > 1.0f ? 1.0f : x);
+}
+
+// Squared distance from p to triangle t = [a, b, c] (9 floats): the
+// Ericson closest-point classification, interior first, then the edges,
+// then the vertices overriding (JAX ops/sdf.py:point_triangle_closest).
+__device__ __forceinline__ float sdf_pair_dist_sq(const float* t, float px,
+                                                  float py, float pz) {
+  const float ax = t[0], ay = t[1], az = t[2];
+  const float bx = t[3], by = t[4], bz = t[5];
+  const float cx = t[6], cy = t[7], cz = t[8];
+  const float abx = bx - ax, aby = by - ay, abz = bz - az;
+  const float acx = cx - ax, acy = cy - ay, acz = cz - az;
+  const float apx = px - ax, apy = py - ay, apz = pz - az;
+  const float d1 = sdf_dot3(abx, aby, abz, apx, apy, apz);
+  const float d2 = sdf_dot3(acx, acy, acz, apx, apy, apz);
+  const float bpx = px - bx, bpy = py - by, bpz = pz - bz;
+  const float d3 = sdf_dot3(abx, aby, abz, bpx, bpy, bpz);
+  const float d4 = sdf_dot3(acx, acy, acz, bpx, bpy, bpz);
+  const float cpx = px - cx, cpy = py - cy, cpz = pz - cz;
+  const float d5 = sdf_dot3(abx, aby, abz, cpx, cpy, cpz);
+  const float d6 = sdf_dot3(acx, acy, acz, cpx, cpy, cpz);
+
+  const float va = d3 * d6 - d5 * d4;
+  const float vb = d5 * d2 - d1 * d6;
+  const float vc = d1 * d4 - d3 * d2;
+
+  const float v_ab = sdf_clamp01(sdf_safe_div(d1, d1 - d3));
+  const float w_ac = sdf_clamp01(sdf_safe_div(d2, d2 - d6));
+  const float w_bc = sdf_clamp01(sdf_safe_div(d4 - d3, (d4 - d3) + (d5 - d6)));
+  const float denom = va + vb + vc;
+  float v = sdf_safe_div(vb, denom);
+  float w = sdf_safe_div(vc, denom);
+
+  const bool in_a = (d1 <= 0.0f) && (d2 <= 0.0f);
+  const bool in_b = (d3 >= 0.0f) && (d4 <= d3);
+  const bool in_c = (d6 >= 0.0f) && (d5 <= d6);
+  const bool on_ab = (vc <= 0.0f) && (d1 >= 0.0f) && (d3 <= 0.0f);
+  const bool on_ac = (vb <= 0.0f) && (d2 >= 0.0f) && (d6 <= 0.0f);
+  const bool on_bc = (va <= 0.0f) && ((d4 - d3) >= 0.0f) && ((d5 - d6) >= 0.0f);
+
+  if (on_bc) { v = 1.0f - w_bc; w = w_bc; }
+  if (on_ac) { v = 0.0f; w = w_ac; }
+  if (on_ab) { v = v_ab; w = 0.0f; }
+  if (in_c) { v = 0.0f; w = 1.0f; }
+  if (in_b) { v = 1.0f; w = 0.0f; }
+  if (in_a) { v = 0.0f; w = 0.0f; }
+
+  const float qx = ax + v * abx + w * acx - px;
+  const float qy = ay + v * aby + w * acy - py;
+  const float qz = az + v * abz + w * acz - pz;
+  return qx * qx + qy * qy + qz * qz;
+}
+
+// 1 where the ray from p along (dxr, dyr, dzr) crosses triangle t:
+// Moller-Trumbore with |det| > 1e-7, u, v in [0, 1], u + v <= 1, t >= 0
+// (the reference's bounds, sdf_cuda_kernel.cu).
+__device__ __forceinline__ int sdf_pair_crossing(const float* t, float px,
+                                                 float py, float pz,
+                                                 float dxr, float dyr,
+                                                 float dzr) {
+  const float ax = t[0], ay = t[1], az = t[2];
+  const float abx = t[3] - ax, aby = t[4] - ay, abz = t[5] - az;
+  const float acx = t[6] - ax, acy = t[7] - ay, acz = t[8] - az;
+  const float pvx = dyr * acz - dzr * acy;
+  const float pvy = dzr * acx - dxr * acz;
+  const float pvz = dxr * acy - dyr * acx;
+  const float det = sdf_dot3(abx, aby, abz, pvx, pvy, pvz);
+  const bool ok = fabsf(det) > 1e-7f;
+  const float inv = 1.0f / (ok ? det : 1.0f);
+  const float tvx = px - ax, tvy = py - ay, tvz = pz - az;
+  const float u = sdf_dot3(tvx, tvy, tvz, pvx, pvy, pvz) * inv;
+  const float qvx = tvy * abz - tvz * aby;
+  const float qvy = tvz * abx - tvx * abz;
+  const float qvz = tvx * aby - tvy * abx;
+  const float vv = sdf_dot3(dxr, dyr, dzr, qvx, qvy, qvz) * inv;
+  const float tt = sdf_dot3(acx, acy, acz, qvx, qvy, qvz) * inv;
+  return (ok && u >= 0.0f && u <= 1.0f && vv >= 0.0f && u + vv <= 1.0f &&
+          tt >= 0.0f)
+             ? 1
+             : 0;
+}
+
+// Stage triangles [f0, f0 + nf) of one mesh into shared memory, all
+// threads of the block together (coalesced: consecutive threads read
+// consecutive floats).
+__device__ __forceinline__ void sdf_stage_chunk(float* s_tri,
+                                                const float* tri, int f0,
+                                                int nf) {
+  for (int i = threadIdx.x; i < nf * 9; i += SDF_THREADS)
+    s_tri[i] = tri[(long)f0 * 9 + i];
+}

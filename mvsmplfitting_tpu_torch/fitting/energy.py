@@ -9,9 +9,14 @@ as a least-squares vector with ``sum(r^2) == total_energy`` for the LM
 solver, and `residual_jacobian` gives (r, dr/dx) with the deep blocks in
 closed form (the two CUDA kernels on the card).
 
+The interpenetration term (grid engine, `ops/sdf.py`) samples each
+frame's body in its own voxelized field; voxelizing launches a kernel on
+the card, so `residuals` takes the grids as an argument when it runs
+inside a `torch.func` transform (see `collision_grids`).
+
 Every function takes x (B, n) and returns per-frame values.  Not ported
-yet: the collision (SDF) term, the 3D-joint term, the GMM prior and the
-SMPL-H/X parameter blocks; asking for them raises NotImplementedError.
+yet: the 3D-joint term, the GMM prior and the SMPL-H/X parameter blocks;
+asking for them raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from ..models import vposer as vposer_lib
 from ..models.camera import Camera, project_points
 from ..models.priors import angle_prior_terms
 from ..models.smpl import SMPLAssets, SMPLParams, smpl_forward
+from ..ops import sdf as sdf_ops
 from ..ops.robust import gmof, gmof_residual
 
 LATENT_DIM = vposer_lib.LATENT_DIM
@@ -81,19 +87,16 @@ class EnergySpec:
     rho: float = 100.0
     num_betas: int = 10
     interpenetration: bool = False
+    coll_grid_size: int = 32
     hand_dim: int = 0
     num_expr: int = 0
     opt_face: bool = False
 
 
-def check_ported(spec: EnergySpec, weights: Optional[StageWeights] = None
-                 ) -> None:
+def check_ported(spec: EnergySpec) -> None:
     """Raise NotImplementedError for energy terms not ported yet."""
     if spec.use_3d:
         raise NotImplementedError("the 3D-joint data term is not ported yet")
-    if spec.interpenetration and (weights is None or weights.coll_on):
-        raise NotImplementedError(
-            "the interpenetration (SDF collision) term is not ported yet")
     if not spec.use_vposer and spec.prior_type != "l2":
         raise NotImplementedError(
             f"prior_type {spec.prior_type!r} is not ported yet (only l2)")
@@ -155,16 +158,35 @@ def _col(t: torch.Tensor, ndim: int) -> torch.Tensor:
 
 
 def _forward(spec: EnergySpec, assets: SMPLAssets,
-             vposer_w: Optional[vposer_lib.VPoserWeights], x: torch.Tensor):
+             vposer_w: Optional[vposer_lib.VPoserWeights], x: torch.Tensor,
+             need_verts: bool = False):
+    """(params, z, body_pose, verts or None, joints): the reduced joint
+    model without vertex work unless `need_verts` (then the full LBS
+    gives both, as JAX's `_forward` does)."""
     params, z = unpack(spec, x)
     body_pose = (vposer_lib.decode(vposer_w, z) if spec.use_vposer
                  else params.body_pose)
-    if assets.joint_model is not None:
+    if assets.joint_model is not None and not need_verts:
         from ..models.joint_model import joint_forward
         joints = joint_forward(assets.joint_model, params, body_pose)
-    else:
-        _, joints = smpl_forward(assets, params, body_pose)
-    return params, z, body_pose, joints
+        return params, z, body_pose, None, joints
+    verts, joints = smpl_forward(assets, params, body_pose)
+    return params, z, body_pose, verts, joints
+
+
+def _coll_on(spec: EnergySpec, weights: StageWeights) -> bool:
+    return spec.interpenetration and weights.coll_on
+
+
+def collision_grids(spec: EnergySpec, assets: SMPLAssets,
+                    vposer_w: Optional[vposer_lib.VPoserWeights],
+                    x: torch.Tensor):
+    """Each frame's body voxelized at x: (phi (B, 1, G, G, G), centers,
+    scales), detached.  Launches the voxelizer on the card, so x must be
+    a plain tensor (not inside a `torch.func` transform)."""
+    verts = _forward(spec, assets, vposer_w, x, need_verts=True)[3]
+    return sdf_ops.person_grids(verts[:, None], assets.faces,
+                                spec.coll_grid_size)
 
 
 def _data_weights(spec: EnergySpec, obs: Observations) -> torch.Tensor:
@@ -185,8 +207,9 @@ def energy_terms(spec: EnergySpec, assets: SMPLAssets, cam: Camera,
                  vposer_w: Optional[vposer_lib.VPoserWeights],
                  gmm, x: torch.Tensor) -> dict:
     """All energy terms as a dict of (B,) tensors (see `total_energy`)."""
-    check_ported(spec, weights)
-    params, z, body_pose, joints = _forward(spec, assets, vposer_w, x)
+    check_ported(spec)
+    params, z, body_pose, verts, joints = _forward(
+        spec, assets, vposer_w, x, need_verts=_coll_on(spec, weights))
     zero = torch.zeros_like(x[:, 0])
 
     diff = gmof(obs.gt2d - _project(cam, joints), spec.rho)
@@ -208,9 +231,14 @@ def energy_terms(spec: EnergySpec, assets: SMPLAssets, cam: Camera,
     if not spec.use_vposer:
         angle = torch.where(angle > 1e4, zero, angle)   # `fitting.py:349`
 
+    coll = zero
+    if _coll_on(spec, weights):
+        coll = sdf_ops.collision_energy(verts[:, None], assets.faces,
+                                        weights.coll, spec.coll_grid_size)
+
     return {"joint": joint_loss, "joint3d": zero, "pose_prior": pprior,
             "shape_prior": shape_loss, "angle_prior": angle,
-            "collision": zero, "extra_prior": zero}
+            "collision": coll, "extra_prior": zero}
 
 
 def total_energy(spec: EnergySpec, assets: SMPLAssets, cam: Camera,
@@ -259,15 +287,27 @@ def _prior_rows_core(spec: EnergySpec, weights: StageWeights,
 def residuals(spec: EnergySpec, assets: SMPLAssets, cam: Camera,
               obs: Observations, weights: StageWeights,
               vposer_w: Optional[vposer_lib.VPoserWeights],
-              gmm, x: torch.Tensor) -> torch.Tensor:
+              gmm, x: torch.Tensor, grids=None) -> torch.Tensor:
     """Residual rows (B, m) with sum(r^2, -1) == total_energy: the 2D
-    data rows (V*K*2, smooth `gmof_residual`) then the prior rows."""
-    check_ported(spec, weights)
-    params, z, body_pose, joints = _forward(spec, assets, vposer_w, x)
-    return torch.cat([
-        _data_rows_from_joints(spec, cam, obs, weights, joints),
-        _prior_rows_core(spec, weights, z, body_pose, params.betas)],
-        dim=-1)
+    data rows (V*K*2, smooth `gmof_residual`), the prior rows and, when
+    the collision term is on this stage, one row w * s (the frame's one
+    body sampled in its own field, `energy.py:439-447` with P = 1).
+
+    `grids` (from `collision_grids`) holds the fields fixed; without it
+    the body is voxelized at x, which needs x to be a plain tensor.
+    """
+    check_ported(spec)
+    params, z, body_pose, _, joints = _forward(spec, assets, vposer_w, x)
+    rows = [_data_rows_from_joints(spec, cam, obs, weights, joints),
+            _prior_rows_core(spec, weights, z, body_pose, params.betas)]
+    if _coll_on(spec, weights):
+        verts, _ = smpl_forward(assets, params, body_pose)
+        if grids is None:
+            grids = sdf_ops.person_grids(verts[:, None], assets.faces,
+                                         spec.coll_grid_size)
+        s = sdf_ops.sampled_at_live_frame(grids[0], verts[:, None])
+        rows.append(weights.coll * s / s.shape[-1])
+    return torch.cat(rows, dim=-1)
 
 
 def analytic_jac_ok(spec: EnergySpec, assets: SMPLAssets) -> bool:
@@ -289,7 +329,10 @@ def residual_jacobian(spec: EnergySpec, assets: SMPLAssets, cam: Camera,
     (projection + GMoF, prior rows) are differentiated, by forward mode
     over the n tangent columns.
     """
-    check_ported(spec, weights)
+    check_ported(spec)
+    if _coll_on(spec, weights):
+        raise ValueError("residual_jacobian does not cover the collision "
+                         "rows; collision stages use the AD Jacobian")
     (joints, djoints, z_in, dz, body_pose, dbp, betas, dbe) = \
         _analytic_core(spec, assets, vposer_w, x)
 

@@ -11,12 +11,18 @@ for the whole batch every iteration, as the vmapped loop does.
 
 Frozen parameters (fix_scale / fix_shape) are handled by masking their
 Jacobian columns and pinning the diagonal.
+
+`aux_fn` is JAX's lagged-SDF hook: a per-iteration state (the collision
+grids) computed once from the iterate without a derivative and held
+fixed through that iteration's Jacobian and trial evaluation.  As in
+JAX it does not combine with `jac_fn`; here it runs on the classic path
+only (the multi-person refinement, its one user, is never speculative).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
@@ -97,20 +103,47 @@ def lm_fit(residual_fn: Callable[[torch.Tensor], torch.Tensor],
            jac_fn: Optional[Callable[[torch.Tensor],
                                      Tuple[torch.Tensor, torch.Tensor]]]
            = None,
+           aux_fn: Optional[Callable[[torch.Tensor], Any]] = None,
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Minimize ``sum(residual_fn(x)**2, -1)`` per frame from x0 (B, n).
 
     Args:
-      residual_fn: x (B, n) -> r (B, m).
+      residual_fn: x (B, n) -> r (B, m); ``residual_fn(x, aux)`` with
+        `aux_fn`.
       mask: (n,) 1.0 for free parameters, 0.0 for frozen.
       jac_fn: optional x -> (r, J (B, m, n)); else forward-mode AD.
+      aux_fn: optional x -> state, computed once per iteration from the
+        iterate under `torch.no_grad` and on plain tensors (it may launch
+        kernels), then held fixed through the Jacobian and the trial
+        step.  Classic LM only; not with `jac_fn`.
 
     Returns:
       (x_final (B, n), final loss (B,), LM iterations run per frame (B,)).
     """
-    def r_and_J(x):
-        r, J = jac_fn(x) if jac_fn is not None else ad_jacobian(
-            residual_fn, x)
+    if aux_fn is not None:
+        if jac_fn is not None:
+            raise ValueError("jac_fn (analytic Jacobian) does not cover "
+                             "aux-state residuals (lagged SDF)")
+        if opts.speculative:
+            raise ValueError("aux_fn (lagged SDF) runs on the classic LM "
+                             "path only: pass speculative=False")
+        res = residual_fn
+
+        def make_aux(x):
+            with torch.no_grad():
+                return aux_fn(x.detach())
+    else:
+        def res(x, aux):
+            return residual_fn(x)
+
+        def make_aux(x):
+            return None
+
+    def r_and_J(x, aux=None):
+        if jac_fn is not None:
+            r, J = jac_fn(x)
+        else:
+            r, J = ad_jacobian(lambda v: res(v, aux), x)
         return r, J * mask
 
     if opts.speculative:
@@ -119,7 +152,7 @@ def lm_fit(residual_fn: Callable[[torch.Tensor], torch.Tensor],
     B = x0.shape[0]
     device = x0.device
     x = x0
-    r0 = residual_fn(x0)
+    r0 = res(x0, make_aux(x0))
     loss = torch.sum(r0 * r0, dim=-1)
     lam = torch.full((B,), opts.init_lambda, dtype=x0.dtype, device=device)
     it = torch.zeros((B,), dtype=torch.int32, device=device)
@@ -129,10 +162,11 @@ def lm_fit(residual_fn: Callable[[torch.Tensor], torch.Tensor],
         active = (it < opts.max_iters) & ~done
         if not bool(active.any()):
             break
-        r, J = r_and_J(x)
+        aux = make_aux(x)
+        r, J = r_and_J(x, aux)
         g, dx = _normal_step(r, J, lam, mask, opts)
         new_x = x + dx
-        r_new = residual_fn(new_x)
+        r_new = res(new_x, aux)
         new_loss = torch.sum(r_new * r_new, dim=-1)
         loss_here = torch.sum(r * r, dim=-1)
         accept = torch.isfinite(new_loss) & (new_loss < loss_here)

@@ -5,12 +5,20 @@ The reference's 4 weight stages (`cfg_files/fit_smpl.yaml:40-59`) run in
 order on the same parameter vector; each is one batched `lm_fit`.  Not
 ported yet: the L-BFGS and gradient solvers, the fused one-loop form
 (`lm_fit_staged`) and the sequence schedule.
+
+A stage with the collision term on takes the AD Jacobian, as in JAX
+(`stages.py:116-117`).  The voxelizer is a ctypes kernel on the card and
+cannot take the wrapped tensors of a `torch.func` transform, so the
+stage's Jacobian voxelizes each frame's body at x first and then
+differentiates the residuals with those grids held fixed.  phi carries
+no derivative, so this is JAX's linearization exactly; the residual
+function itself voxelizes at its own argument.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -19,7 +27,7 @@ from ..models.smpl import SMPLAssets, SMPLParams
 from ..models.vposer import VPoserWeights
 from . import energy as E
 from .energy import EnergySpec, Observations, StageWeights
-from .lm import LMOptions, lm_fit
+from .lm import LMOptions, ad_jacobian, lm_fit
 
 # Demo schedule: per-stage (body_pose_weight, shape_weight,
 # coll_loss_weight); data weight 500 / image_height for every stage and
@@ -59,6 +67,30 @@ def default_stages(cfg: FitConfig, img_height: torch.Tensor
                                   cfg.coll_weights)]
 
 
+def stage_jacobian(cfg: FitConfig, assets: SMPLAssets, cam: Camera,
+                   obs: Observations, weights: StageWeights,
+                   vposer_w: Optional[VPoserWeights], gmm
+                   ) -> Optional[Callable]:
+    """The stage's x -> (r, J), or None for forward-mode AD of the
+    residuals: with the collision term on, AD with each frame's grids
+    voxelized at x and held fixed; else the closed form where it covers
+    the energy."""
+    spec = cfg.spec
+    if spec.interpenetration and weights.coll_on:
+        def jac_fn(xv):
+            grids = E.collision_grids(spec, assets, vposer_w, xv)
+            return ad_jacobian(
+                lambda v: E.residuals(spec, assets, cam, obs, weights,
+                                      vposer_w, gmm, v, grids=grids), xv)
+        return jac_fn
+    if cfg.lm.jac == "analytic" and E.analytic_jac_ok(spec, assets):
+        def jac_fn(xv):
+            return E.residual_jacobian(spec, assets, cam, obs, weights,
+                                       vposer_w, gmm, xv)
+        return jac_fn
+    return None
+
+
 def run_stage(cfg: FitConfig, assets: SMPLAssets, cam: Camera,
               obs: Observations, weights: StageWeights,
               vposer_w: Optional[VPoserWeights], gmm, x: torch.Tensor
@@ -74,12 +106,7 @@ def run_stage(cfg: FitConfig, assets: SMPLAssets, cam: Camera,
         return E.residuals(spec, assets, cam, obs, weights, vposer_w, gmm,
                            xv)
 
-    jac_fn = None
-    if (cfg.lm.jac == "analytic" and E.analytic_jac_ok(spec, assets)
-            and not (spec.interpenetration and weights.coll_on)):
-        def jac_fn(xv):
-            return E.residual_jacobian(spec, assets, cam, obs, weights,
-                                       vposer_w, gmm, xv)
+    jac_fn = stage_jacobian(cfg, assets, cam, obs, weights, vposer_w, gmm)
     x_new, _, iters = lm_fit(res_fn, x, mask, cfg.lm, jac_fn=jac_fn)
     loss = E.total_energy(spec, assets, cam, obs, weights, vposer_w, gmm,
                           x_new)

@@ -21,9 +21,19 @@ from typing import Dict, Iterable
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC_DIR.parent.parent / "build" / "kernels"
-KERNEL_SOURCES = ("joint_jacobian", "vposer_tail")
+KERNEL_SOURCES = ("joint_jacobian", "vposer_tail", "sdf_grid",
+                  "sdf_grid_fast")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# The SDF kernels must round every operation once, in the order written,
+# to agree bitwise with each other and with their plain version: no FMA
+# contraction (and no fast math, which nvcc leaves off by default).
+EXTRA_FLAGS = {"sdf_grid": ("-fmad=false",),
+               "sdf_grid_fast": ("-fmad=false",)}
+
+
+def flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -42,9 +52,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    """The library's path, named by a hash of its source, the shared
+    headers of `csrc/` and its flags."""
+    h = hashlib.sha1((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(flags(name)).encode())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
@@ -61,7 +75,7 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+        cmd = [nvcc, *flags(name), "-o", str(tmp),
                str(CSRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),

@@ -95,3 +95,42 @@ def make_problem(num_views: int = 6, num_frames: int = 1, seed: int = 0,
         view_mask=torch.ones((B, num_views), device=dev),
         joint_weights=torch.ones((B, K), device=dev))
     return assets, vposer_w, cam, obs
+
+
+def make_people_problem(dx0: float = 0.2, num_views: int = 6,
+                        device: DeviceLike = None
+                        ) -> Tuple[SMPLAssets, vposer_lib.VPoserWeights,
+                                   Camera, Observations]:
+    """Two people of one frame at +-dx0 along x (the JAX multi-person
+    tests' fixture, `tests/test_multi_person.py:_fixture_people`):
+    dx0=0.2 interpenetrates deeply, dx0=0.26 is just clear.  Returns
+    (assets, VPoser weights, cameras, observations (2, V, K, ...)), the
+    people as the leading axis."""
+    dev = resolve_device(device)
+    assets = with_joint_model(synthetic_smpl(device=dev))
+    vposer_w = vposer_lib.load_npz(VPOSER_NPZ, device=dev)
+    cam = orbit_cameras(num_views, dev)
+    rng = np.random.default_rng(7)
+    zs, betas = [], []
+    for _ in range(2):
+        zs.append(0.2 * rng.standard_normal(32))
+        betas.append(0.3 * rng.standard_normal(10))
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    true = SMPLParams(betas=t(betas),
+                      global_orient=t([[0.1, 0.2, 0.0]] * 2),
+                      body_pose=torch.zeros((2, 69), device=dev),
+                      transl=t([[-dx0, -0.1, 0.2], [dx0, -0.1, 0.2]]),
+                      scale=t([1.0, 1.0]))
+    body_pose = vposer_lib.decode(vposer_w, t(zs))
+    _, joints = smpl_forward(assets, true, body_pose)
+    gt2d = project_points(cam, joints).transpose(0, 1).contiguous()
+    K = gt2d.shape[2]
+    obs = Observations(
+        gt2d=gt2d,
+        conf=torch.ones((2, num_views, K), device=dev),
+        view_mask=torch.ones((2, num_views), device=dev),
+        joint_weights=torch.ones((2, K), device=dev))
+    return assets, vposer_w, cam, obs

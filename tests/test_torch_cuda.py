@@ -10,7 +10,8 @@ can be left out):
 Without a GPU every test skips.  Tolerances are the kernel ones: RTOL
 3e-5 / ATOL 1e-5 (fp32 reassociation); the VPoser D block at rtol 3e-4 /
 atol 3e-4 max|D|.  B=130 is not a multiple of the tail kernel's
-4-frame blocks, so the ragged last block is covered.
+4-frame blocks, so the ragged last block is covered.  The SDF
+voxelizers are compared bitwise (see `test_sdf_kernels_on_card`).
 """
 
 import numpy as np
@@ -19,10 +20,12 @@ import torch
 
 from mvsmplfitting_tpu_torch.models import vposer as V
 from mvsmplfitting_tpu_torch.ops import joint_kernel as JK
+from mvsmplfitting_tpu_torch.ops import sdf as sdf_ops
+from mvsmplfitting_tpu_torch.ops import sdf_kernel as SK
 from mvsmplfitting_tpu_torch.ops import vposer_kernel as VK
 from mvsmplfitting_tpu_torch.synthetic import VPOSER_NPZ
 
-from torch_port_helpers import port_assets, rand_joint_inputs
+from torch_port_helpers import port_assets, posed_bodies, rand_joint_inputs
 
 RTOL = 3e-5
 ATOL = 1e-5
@@ -77,6 +80,7 @@ def test_cuda_tensors_never_take_the_plain_path(cuda_device, monkeypatch):
         raise AssertionError("plain version reached with CUDA tensors")
     monkeypatch.setattr(JK, "joint_jacobian_plain", refuse)
     monkeypatch.setattr(VK, "tail_plain", refuse)
+    monkeypatch.setattr(SK, "sdf_grid", refuse)
     jm = port_assets("smpl").joint_model.to(cuda_device)
     theta, betas, scale = (torch.from_numpy(a).to(cuda_device)
                            for a in rand_joint_inputs(
@@ -84,4 +88,28 @@ def test_cuda_tensors_never_take_the_plain_path(cuda_device, monkeypatch):
     JK.joint_jacobian_batched(jm, theta, betas, scale)
     w = V.load_npz(VPOSER_NPZ, device=cuda_device)
     VK.decode_jac_batched(w, torch.zeros((4, 32), device=cuda_device))
+    verts, faces = posed_bodies()
+    SK.sdf_grid_fast(verts.to(cuda_device), faces, 16)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_sdf_kernels_on_card(cuda_device):
+    """Both voxelizers on two posed bodies at G=32 (one launch per kernel
+    for the pair): bitwise equal to each other and to the plain version,
+    which runs the same IEEE operations (`csrc/sdf_common.cuh`)."""
+    verts, faces = posed_bodies()
+    verts, faces = verts.to(cuda_device), faces.to(cuda_device)
+    tri = sdf_ops.triangles(verts, faces)
+    before = dict(SK.LAUNCHES)
+    b3 = SK.sdf_grid_cuda(tri, 32)
+    b4 = SK.sdf_grid_fast(verts, faces, 32)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES["sdf_grid"] == before["sdf_grid"] + 1
+    assert SK.LAUNCHES["sdf_cross"] == before["sdf_cross"] + 1
+    assert SK.LAUNCHES["sdf_dist"] == before["sdf_dist"] + 1
+    plain = sdf_ops.sdf_grid(verts, faces, 32)
+    assert int((plain > 0).sum()) > 100
+    assert torch.equal(b4, b3)
+    assert torch.equal(b3 > 0, plain > 0)
+    torch.testing.assert_close(b3, plain, rtol=0.0, atol=1e-5)

@@ -7,7 +7,8 @@ cuda_runtime.h`, which runs every block's threads as std::threads with
 barriers for `__syncthreads`/`__syncwarp`; the C entry point is then
 called through the wrappers' own `bind`/`call` on CPU tensors and held
 against the plain PyTorch version at the kernel tolerances (RTOL 3e-5 /
-ATOL 1e-5; the VPoser D block at 3e-4 / 3e-4 max|D|).  This checks the
+ATOL 1e-5; the VPoser D block at 3e-4 / 3e-4 max|D|; the SDF voxelizers
+bitwise).  This checks the
 arithmetic and indexing, not the GPU's memory model or timing.
 """
 
@@ -24,9 +25,12 @@ import torch
 from mvsmplfitting_tpu_torch.models import vposer as V
 from mvsmplfitting_tpu_torch.ops import cuda_build
 from mvsmplfitting_tpu_torch.ops import joint_kernel as JK
+from mvsmplfitting_tpu_torch.ops import sdf as sdf_ops
+from mvsmplfitting_tpu_torch.ops import sdf_kernel as SK
 from mvsmplfitting_tpu_torch.ops import vposer_kernel as VK
 
-from torch_port_helpers import port_assets, rand_joint_inputs, vposer_pair
+from torch_port_helpers import (icosphere, port_assets, posed_bodies,
+                                rand_joint_inputs, vposer_pair)
 
 STUB_DIR = os.path.join(os.path.dirname(__file__), "cuda_host")
 LAUNCH = re.compile(r"(\w+)<<<(.*?),(.*?),.*?>>>\((.*?)\);", re.S)
@@ -42,12 +46,14 @@ def host_libs(tmp_path_factory):
     for name in cuda_build.KERNEL_SOURCES:
         src = (cuda_build.CSRC_DIR / f"{name}.cu").read_text()
         src, n = LAUNCH.subn(r"emu_launch(\2, \3, [&] { \1(\4); });", src)
-        assert n == 1, f"{name}: expected one kernel launch, found {n}"
+        want = 2 if name == "sdf_grid_fast" else 1
+        assert n == want, f"{name}: expected {want} kernel launches, found {n}"
         cpp = out_dir / f"{name}.cpp"
         cpp.write_text(src)
         so = out_dir / f"lib{name}.so"
         subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC",
-                        "-pthread", "-I", STUB_DIR, "-o", str(so), str(cpp)],
+                        "-pthread", "-I", STUB_DIR, "-I",
+                        str(cuda_build.CSRC_DIR), "-o", str(so), str(cpp)],
                        check=True, timeout=300, capture_output=True)
         libs[name] = ctypes.CDLL(str(so))
     return libs
@@ -80,3 +86,43 @@ def test_vposer_tail_source_on_host(host_libs, sigma):
     torch.testing.assert_close(aa1, aa0, rtol=3e-5, atol=1e-5)
     sc = max(D0.abs().max().item(), 1.0)
     torch.testing.assert_close(D1, D0, rtol=3e-4, atol=3e-4 * sc)
+
+
+def _sdf_batches():
+    """(name, verts (M, V, 3), faces): two tilted spheres in one batch
+    (one partly outside the grid) and two posed bodies in another."""
+    v1, faces = icosphere(radius=0.45, center=(0.2, 0.1, -0.1), n=9)
+    v2, _ = icosphere(radius=0.6, center=(0.7, 0.7, 0.0), n=9)
+    spheres = torch.from_numpy(np.stack([v1, v2]))
+    bodies, body_faces = posed_bodies()
+    return [("spheres", spheres, torch.from_numpy(faces)),
+            ("bodies", bodies, body_faces)]
+
+
+@pytest.mark.parametrize("G", [8, 12])
+def test_sdf_sources_on_host(host_libs, G):
+    """Both voxelizers, bitwise against the plain version: the pair
+    arithmetic is the same IEEE operations in the same order.  At G=12,
+    G*G = 144 is not a multiple of the 128-voxel tile, so tiles straddle
+    rows and the last tile of a slice is partial."""
+    grid_fn = SK.bind_grid(host_libs["sdf_grid"])
+    cross_fn, dist_fn = SK.bind_fast(host_libs["sdf_grid_fast"])
+    for name, verts, faces in _sdf_batches():
+        tri = sdf_ops.triangles(verts, faces)
+        want = sdf_ops.sdf_grid(verts, faces, G)
+        assert (want > 0).any(), name
+        got3 = SK.call_grid(grid_fn, tri, G, None)
+        tb = SK.cull_tables(tri, G)
+        inside, flags = SK.call_cross(cross_fn, tb, None)
+        got4, visits = SK.call_dist(dist_fn, tb, inside, flags, None)
+        assert torch.equal(got3, want), name
+        assert torch.equal(got4, want), name
+        assert torch.equal(inside.reshape(want.shape) > 0, want > 0), name
+        # The tile flags are the or of the tile's inside voxels, and only
+        # flagged tiles visit chunks (at least one each).
+        T = tb.T
+        per_tile = torch.nn.functional.pad(
+            inside.reshape(-1, G, G * G), (0, T * SK.TILE - G * G))
+        any_in = per_tile.reshape(-1, G * T, SK.TILE).amax(-1)
+        assert torch.equal(flags, any_in), name
+        assert torch.equal(visits > 0, flags > 0), name

@@ -72,3 +72,55 @@ def rand_joint_inputs(rng, B, J=24, NB=10):
     betas = rng.normal(0, 1.0, (B, NB)).astype(np.float32)
     scale = rng.uniform(0.7, 1.5, (B,)).astype(np.float32)
     return theta, betas, scale
+
+
+def icosphere(radius=0.5, center=(0.0, 0.0, 0.0), n=12, tilt=0.1):
+    """UV sphere mesh, tilted off the grid axes (the JAX SDF tests'
+    fixture, `tests/test_sdf.py:icosphere`): an axis-aligned sphere makes
+    the corner parity ray graze shared edges."""
+    lats = np.linspace(1e-3, np.pi - 1e-3, n)
+    lons = np.linspace(0, 2 * np.pi, n, endpoint=False)
+    verts = [[radius * np.sin(la) * np.cos(lo) + center[0],
+              radius * np.cos(la) + center[1],
+              radius * np.sin(la) * np.sin(lo) + center[2]]
+             for la in lats for lo in lons]
+    verts.append([center[0], radius + center[1], center[2]])
+    verts.append([center[0], -radius + center[1], center[2]])
+    top, bot = len(verts) - 2, len(verts) - 1
+    faces = []
+    for i in range(n - 1):
+        for j in range(n):
+            a, b = i * n + j, i * n + (j + 1) % n
+            c, d = (i + 1) * n + j, (i + 1) * n + (j + 1) % n
+            faces += [[a, b, c], [b, d, c]]
+    for j in range(n):
+        faces.append([top, j, (j + 1) % n])
+        faces.append([bot, (n - 1) * n + (j + 1) % n, (n - 1) * n + j])
+    verts = np.asarray(verts, np.float32)
+    if tilt:
+        c, s = np.cos(tilt), np.sin(tilt)
+        rz = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+        rx = np.array([[1, 0, 0], [0, c, -s], [0, s, c]], np.float32)
+        ctr = np.asarray(center, np.float32)
+        verts = (verts - ctr) @ (rz @ rx).T + ctr
+    return verts, np.asarray(faces, np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def posed_bodies(num=2, seed=3):
+    """`num` posed synthetic smpl bodies (num, 6890, 3) and the faces,
+    normalized into [-1, 1]^3 as `ops.sdf.person_grids` does (CPU)."""
+    import torch
+
+    from mvsmplfitting_tpu_torch.models import vposer as tv
+    from mvsmplfitting_tpu_torch.models.smpl import SMPLParams, smpl_forward
+    from mvsmplfitting_tpu_torch.ops.sdf import box_frame
+    assets = port_assets("smpl")
+    rng = np.random.default_rng(seed)
+    z = torch.from_numpy(rng.normal(0, 0.8, (num, 32)).astype(np.float32))
+    params = SMPLParams.zeros(num)
+    vposer_w = tv.load_npz(VPOSER_NPZ, device="cpu")     # JAX-free
+    verts, _ = smpl_forward(assets, params, tv.decode(vposer_w, z))
+    centers, scales = box_frame(verts)
+    local = (verts - centers[:, None]) / scales[:, None, None]
+    return local.contiguous(), assets.faces

@@ -1,9 +1,13 @@
-"""Where the time of the PyTorch port's batched fit goes, on one GPU.
+"""Where the time of the PyTorch port's fits goes, on one GPU.
 
     python3 tools/profile_torch_fit.py [--frames 512] [--iters 40]
+    python3 tools/profile_torch_fit.py --multi [--grid 128]
 
 Runs the port's main path (`batched_fit_frames`, 6 views, smpl, library
-defaults) once to warm up, then once timed without the profiler and
+defaults), or with `--multi` the two-person collision fit (`fit_people`,
+grid engine, hybrid schedule, the weights of
+`cfg_files/fit_multi_person_sdf.yaml`, LM max_iters 60, on the dx0=0.2
+fixture), once to warm up, then once timed without the profiler and
 once under `torch.profiler`, with the fit's layers wrapped in
 `record_function` ranges (by patching module attributes here; the
 package itself carries no instrumentation).  Prints, one JSON object
@@ -31,6 +35,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 LAYERS = (
+    ("fitting.stages", "fit_frame"),
+    ("fitting.lm", "ad_jacobian"),
+    ("ops.sdf_kernel", "sdf_grid_fast"),
+    ("ops.sdf_kernel", "cull_tables"),
+    ("ops.sdf", "collision_sums_sampled"),
     ("fitting.energy", "residual_jacobian"),
     ("fitting.energy", "residuals"),
     ("fitting.energy", "total_energy"),
@@ -54,9 +63,15 @@ def _wrap_layers():
         functools.update_wrapper(wrapped, fn)
         setattr(mod, fn_name, wrapped)
     # Modules that imported a layer by name keep their own reference.
+    from mvsmplfitting_tpu_torch.fitting import (initialize, lm,
+                                                 multi_person, stages)
     from mvsmplfitting_tpu_torch.parallel import batched
-    from mvsmplfitting_tpu_torch.fitting import initialize
     batched.init_guess = initialize.init_guess
+    batched.fit_frame = stages.fit_frame
+    multi_person.init_guess = initialize.init_guess
+    multi_person.fit_frame = stages.fit_frame
+    multi_person.ad_jacobian = lm.ad_jacobian
+    stages.ad_jacobian = lm.ad_jacobian
 
 
 def _category(name: str) -> str:
@@ -64,7 +79,11 @@ def _category(name: str) -> str:
         return "joint_jacobian kernel"
     if "vposer_tail_kernel" in name:
         return "vposer_tail kernel"
+    if "sdf_" in name and "_kernel" in name:
+        return "voxelizer kernels"
     low = name.lower()
+    if "sort" in low:
+        return "sorts"
     if "gemm" in low or "gemv" in low or "cutlass" in low or "dot" in low:
         return "matmul (cuBLAS)"
     if "reduce" in low:
@@ -80,6 +99,10 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=512)
     ap.add_argument("--iters", type=int, default=40)
+    ap.add_argument("--multi", action="store_true",
+                    help="profile the two-person collision fit instead")
+    ap.add_argument("--grid", type=int, default=128,
+                    help="collision grid size of --multi")
     ap.add_argument("--trace", default=None,
                     help="write the Chrome trace of the profiled fit here")
     args = ap.parse_args()
@@ -102,21 +125,41 @@ def main() -> int:
         timeout=60).stdout.strip()
     print(json.dumps({"card": card, "torch": torch.__version__}), flush=True)
 
-    B = args.frames
-    assets, vw, cam, obs = make_problem(6, B, seed=0, device=dev)
-    batch = BatchedFitInputs(obs, torch.full((B,), 1080.0, device=dev))
-    cfg = FitConfig(lm=LMOptions(max_iters=args.iters))
+    if args.multi:
+        from mvsmplfitting_tpu_torch.fitting.energy import EnergySpec
+        from mvsmplfitting_tpu_torch.fitting.multi_person import fit_people
+        from mvsmplfitting_tpu_torch.synthetic import make_people_problem
+        B = 2
+        assets, vw, cam, obs = make_people_problem(0.2, device=dev)
+        cfg = FitConfig(
+            spec=EnergySpec(interpenetration=True, coll_grid_size=args.grid),
+            pose_weights=(404.0, 404.0, 57.4, 4.78),
+            shape_weights=(100.0, 50.0, 10.0, 5.0),
+            coll_weights=(0.0, 0.0, 1000.0, 4500.0),
+            lm=LMOptions(max_iters=60))
 
-    def fit():
-        res = batched_fit_frames(cfg, assets, cam, batch, vposer_w=vw,
-                                 device=dev)
-        torch.cuda.synchronize()
-        return res
+        def fit():
+            res, _ = fit_people(cfg, assets, cam, obs, vposer_w=vw,
+                                sdf_engine="grid", device=dev)
+            torch.cuda.synchronize()
+            return res
+    else:
+        B = args.frames
+        assets, vw, cam, obs = make_problem(6, B, seed=0, device=dev)
+        batch = BatchedFitInputs(obs, torch.full((B,), 1080.0, device=dev))
+        cfg = FitConfig(lm=LMOptions(max_iters=args.iters))
+
+        def fit():
+            res = batched_fit_frames(cfg, assets, cam, batch, vposer_w=vw,
+                                     device=dev)
+            torch.cuda.synchronize()
+            return res
 
     fit()                                                  # warm-up
     t0 = time.perf_counter()
     res = fit()
     wall = time.perf_counter() - t0
+    # --multi: the refinement's iterations (the solo fits' are not kept).
     iters = int(res.lm_iters.amax(dim=0).sum().item())
     print(json.dumps({"timed": {
         "frames": B, "wall_s": wall, "fps": B / wall, "lm_iterations": iters,
