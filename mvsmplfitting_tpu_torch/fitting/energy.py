@@ -297,11 +297,11 @@ def residuals(spec: EnergySpec, assets: SMPLAssets, cam: Camera,
     the body is voxelized at x, which needs x to be a plain tensor.
     """
     check_ported(spec)
-    params, z, body_pose, _, joints = _forward(spec, assets, vposer_w, x)
+    params, z, body_pose, verts, joints = _forward(
+        spec, assets, vposer_w, x, need_verts=_coll_on(spec, weights))
     rows = [_data_rows_from_joints(spec, cam, obs, weights, joints),
             _prior_rows_core(spec, weights, z, body_pose, params.betas)]
     if _coll_on(spec, weights):
-        verts, _ = smpl_forward(assets, params, body_pose)
         if grids is None:
             grids = sdf_ops.person_grids(verts[:, None], assets.faces,
                                          spec.coll_grid_size)

@@ -26,7 +26,7 @@ transforms (see `fitting/stages.py`).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -35,6 +35,8 @@ import torch
 FAR_D2 = 1e6
 DET_EPS = 1e-7
 DIV_FLOOR = 1e-30
+# Faces per step of the plain voxelizer's loops.
+FACE_CHUNK = 4096
 
 
 # ---------------------------------------------------------------------------
@@ -213,33 +215,31 @@ def triangles(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
     return tri.reshape(tri.shape[:-2] + (9,)).float().contiguous()
 
 
-def sdf_grid_from_triangles(tri: torch.Tensor, grid_size: int,
-                            face_chunk: int = 4096,
-                            pair_budget: Optional[int] = None
-                            ) -> torch.Tensor:
-    """phi (..., G, G, G) [z, y, x] from triangles (..., F, 9).
+def sdf_grid(verts: torch.Tensor, faces: torch.Tensor,
+             grid_size: int = 32) -> torch.Tensor:
+    """phi (..., G, G, G) indexed [z, y, x]: the plain PyTorch voxelizer.
 
-    Brute force over all faces, in two passes: the crossing count of
-    every voxel, then the running minimum of d^2 (initialised to 1e6)
-    over all faces for the inside voxels only, since phi is 0 at every
-    other voxel whatever its distance.  Faces stream in chunks of
-    `face_chunk` and voxels in chunks too, so no temporary exceeds
-    `pair_budget` elements (by default 2^24 on a GPU, 2^20 on the CPU,
-    where smaller temporaries stay in cache).
+    verts: (..., V, 3) normalized to [-1, 1]^3; faces: (F, 3).  Brute
+    force over all faces, in two passes: the crossing count of every
+    voxel, then the running minimum of d^2 (initialised to 1e6) over all
+    faces for the inside voxels only, since phi is 0 at every other voxel
+    whatever its distance.  Faces stream in chunks of FACE_CHUNK and
+    voxels in chunks too, so no temporary exceeds the pair budget (2^24
+    elements on a GPU, 2^20 on the CPU, where smaller temporaries stay
+    in cache).
     """
-    if pair_budget is None:
-        pair_budget = 1 << (24 if tri.is_cuda else 20)
     G = grid_size
-    lead = tri.shape[:-2]
-    tri = tri.reshape(-1, tri.shape[-2], 9)
+    lead = verts.shape[:-2]
+    tri = triangles(verts.reshape((-1,) + verts.shape[-2:]), faces)
     centers = voxel_centers(G, tri.device)
-    vchunk = max(1, pair_budget // face_chunk)
+    pair_budget = 1 << (24 if tri.is_cuda else 20)
+    vchunk = max(1, pair_budget // FACE_CHUNK)
     out = torch.zeros((tri.shape[0], centers.shape[0]), dtype=torch.float32,
                       device=tri.device)
 
     def face_chunks(t):
-        for f0 in range(0, t.shape[0], face_chunk):
-            c = t[f0:f0 + face_chunk]
+        for f0 in range(0, t.shape[0], FACE_CHUNK):
+            c = t[f0:f0 + FACE_CHUNK]
             yield [c[:, i][None] for i in range(9)]           # (1, C) each
 
     for m in range(tri.shape[0]):
@@ -264,16 +264,6 @@ def sdf_grid_from_triangles(tri: torch.Tensor, grid_size: int,
                     run_min, _pair_dist_sq(*comps, px, py, pz).amin(dim=1))
             out[m, idx] = _sqrt(run_min)
     return out.reshape(lead + (G, G, G))
-
-
-def sdf_grid(verts: torch.Tensor, faces: torch.Tensor, grid_size: int = 32,
-             face_chunk: int = 4096) -> torch.Tensor:
-    """phi (..., G, G, G) indexed [z, y, x]: the plain PyTorch voxelizer.
-
-    verts: (..., V, 3) normalized to [-1, 1]^3; faces: (F, 3).
-    """
-    return sdf_grid_from_triangles(triangles(verts, faces), grid_size,
-                                   face_chunk)
 
 
 # ---------------------------------------------------------------------------

@@ -18,11 +18,19 @@ Tolerances and why:
   The joint refinement is chaotic on the deep-overlap fixture
   (`multi_person.py:145-152`): its first normal equations at the default
   init_lambda 1e-3 are so ill-conditioned in fp32 that the two packages'
-  Cholesky steps differ and land in different basins (measured: sums
-  [3.57, 5.82] vs [3.71, 4.10]).  With init_lambda 1.0, two stages of 3
-  classic chol iterations, then 1 lagged and 1 exact refinement
-  iteration at G=16, both land in one basin (measured 2.2e-4 on the
-  losses, 0.9% on the sums).
+  Cholesky steps differ and land in different basins (measured at G=16:
+  sums [3.57, 5.82] vs [3.71, 4.10]).  With init_lambda 1.0, one stage
+  of 3 classic chol iterations at the first stage's prior weights (pose
+  404, shape 100) and coll weight 1000, then 1 lagged and 1 exact
+  refinement iteration, both land in one basin (measured 2.6e-6 on the
+  losses and 2e-4 on the sums at G=8, 0.8% on the sums at G=16).  At the
+  last stage's prior weights (57.4, 10) one stage lands in different
+  basins (sums 3.6% apart at G=8); one stage instead of two saves ~12 s
+  of XLA compile.
+
+The JAX programs are compiled once per module (the linearizations in
+one program at G=8, `fit_people` once): their XLA compile is most of
+this module's time.
 """
 
 import jax
@@ -47,6 +55,8 @@ from mvsmplfitting_tpu_torch.fitting import multi_person as TM
 from mvsmplfitting_tpu_torch.fitting import stages as TS
 
 from torch_port_helpers import jax_assets, vposer_pair
+
+G_LIN = 8       # the grid of the linearization checks
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -78,7 +88,8 @@ def _close(got, want, rtol):
 @pytest.fixture(scope="module")
 def people():
     """The two-person deep-overlap fixture (dx0 = 0.2) in both packages,
-    and a parameter vector near the truth (1, 2 * 49)."""
+    a parameter vector near the truth (1, 2 * 49), a second one near it
+    and a random tangent direction."""
     ta, tw, tc, to = synthetic.make_people_problem(0.2, device="cpu")
     jc, jo = _jax_inputs(tc, to)
     rng = np.random.default_rng(7)          # the fixture's own draws
@@ -91,9 +102,13 @@ def people():
                         [[-0.2, -0.1, 0.2], [0.2, -0.1, 0.2]],
                         [[1.0], [1.0]]], 1)
     x = x + np.random.default_rng(0).normal(0, 0.02, x.shape)
+    flat = x.reshape(1, -1).astype(np.float32)
+    rng = np.random.default_rng(3)
     return dict(ta=ta, tw=tw, tc=tc, to=to, ja=jax_assets("smpl"),
-                jw=vposer_pair()[0], jc=jc, jo=jo,
-                flat=x.reshape(1, -1).astype(np.float32))
+                jw=vposer_pair()[0], jc=jc, jo=jo, flat=flat,
+                flat_b=(flat + rng.normal(0, 0.01, flat.shape)).astype(
+                    np.float32),
+                dir=rng.normal(0, 1.0, flat.shape).astype(np.float32))
 
 
 def test_collision_term_is_ported():
@@ -102,45 +117,28 @@ def test_collision_term_is_ported():
     TE.check_ported(spec)
 
 
-def test_single_person_collision_rows_match_jax():
-    """The energy's collision row (one body sampled in its own field,
-    P = 1) and the collision stage's Jacobian (grids voxelized at x and
-    held fixed) against JAX's residuals and forward mode, for 2 frames
-    at G=12; `sum(r^2) == total_energy` with the term on."""
-    B, G = 2, 12
-    ta, tw, tc, to = synthetic.make_problem(6, B, seed=0, device="cpu")
-    jc, jo = _jax_inputs(tc, to)
-    ja, jw = jax_assets("smpl"), vposer_pair()[0]
-    rng = np.random.default_rng(1)
-    x = rng.normal(0, 0.1, (B, 49)).astype(np.float32)
-    x[:, 48] = 1.0
-    v = rng.normal(0, 1.0, (2, B, 49)).astype(np.float32)
-    jspec = JE.EnergySpec(interpenetration=True, coll_grid_size=G)
-    jweights = JE.StageWeights.make(data=500 / 1080.0, pose=57.4,
-                                    shape=10.0, coll=1000.0)
-
-    def jres(xs):
-        return jax.vmap(lambda xx, o: JE.residuals(
-            jspec, ja, jc, o, jweights, jw, None, xx))(xs, jo)
-
-    r0, jv0 = jax.jit(lambda xs, vs: jax.vmap(
-        lambda d: jax.jvp(jres, (xs,), (d,)))(vs))(jnp.asarray(x),
-                                                 jnp.asarray(v))
-    r0, jv0 = np.asarray(r0[0]), np.asarray(jv0)
-
+def test_single_person_collision_rows_match_jax(people, linearized):
+    """The energy's collision row (each person alone, as a frame, sampled
+    in its own field: `energy.py:439-447` with P = 1) and the collision
+    stage's Jacobian (grids voxelized at x and held fixed) against JAX's
+    residuals and forward mode; `sum(r^2) == total_energy` with the term
+    on."""
+    p, want = people, linearized
+    ta, tw, tc, to = p["ta"], p["tw"], p["tc"], p["to"]
     cfg = TS.FitConfig(spec=TE.EnergySpec(interpenetration=True,
-                                          coll_grid_size=G))
-    weights = TE.StageWeights.make(data=torch.full((B,), 500 / 1080.0),
+                                          coll_grid_size=G_LIN))
+    weights = TE.StageWeights.make(data=torch.full((2,), 500 / 1080.0),
                                    pose=57.4, shape=10.0, coll=1000.0)
-    xt = torch.from_numpy(x)
+    xt = torch.from_numpy(p["flat"].reshape(2, 49))
     r1 = TE.residuals(cfg.spec, ta, tc, to, weights, tw, None, xt)
     jac_fn = TS.stage_jacobian(cfg, ta, tc, to, weights, tw, None)
     r2, J = jac_fn(xt)
-    assert r1.shape == (B, r0.shape[1]) and r0[:, -1].min() > 1.0
+    r0 = want["single"]
+    assert r1.shape == r0.shape and r0[:, -1].min() > 1.0
     _close(r1.numpy(), r0, 1e-5)
     np.testing.assert_array_equal(r2.numpy(), r1.numpy())
-    _close(torch.einsum("bmn,kbn->kbm", J, torch.from_numpy(v)).numpy(),
-           jv0, 1e-4)
+    v = torch.from_numpy(p["dir"].reshape(2, 49))
+    _close(torch.einsum("bmn,bn->bm", J, v).numpy(), want["single_t"], 1e-4)
     e = TE.total_energy(cfg.spec, ta, tc, to, weights, tw, None, xt)
     np.testing.assert_allclose(e.numpy(), (r1 * r1).sum(-1).numpy(),
                                rtol=1e-5)
@@ -186,7 +184,8 @@ def test_lm_aux_fn_matches_jax():
 
 def _jax_forms(p, G):
     """JAX `fit_people`'s grid-engine closures (`multi_person.py:
-    250-289`), rebuilt from its public functions."""
+    250-289`), rebuilt from its public functions, and the single-person
+    residuals with the collision term on (each person as a frame)."""
     ja, jw, jc, jo = p["ja"], p["jw"], p["jc"], p["jo"]
     spec = JE.EnergySpec(interpenetration=True, coll_grid_size=G)
     cfg = JFitConfig(spec=spec, pose_weights=(404.0, 57.4),
@@ -201,9 +200,9 @@ def _jax_forms(p, G):
             return jsmpl_forward(ja, params, jvposer.decode(jw, z))[0]
         return jax.vmap(one)(xs)
 
-    def rows(xs):
+    def rows(xs, spec=solo):
         return jax.vmap(lambda x, o: JE.residuals(
-            solo, ja, jc, o, weights, jw, None, x))(xs, jo).reshape(-1)
+            spec, ja, jc, o, weights, jw, None, x))(xs, jo)
 
     def grids_of(f):
         return JS.person_grids(all_verts(f.reshape(P, n)), ja.faces, G)
@@ -211,22 +210,46 @@ def _jax_forms(p, G):
     def lagged(f, grids):
         xs = f.reshape(P, n)
         s = JS.collision_sums_sampled(*grids, all_verts(xs))
-        return jnp.concatenate([rows(xs), weights.coll * s / P])
+        return jnp.concatenate([rows(xs).reshape(-1), weights.coll * s / P])
 
     def exact(f):
         xs = f.reshape(P, n)
         s = JS.collision_sums(all_verts(xs), ja.faces, G)
-        return jnp.concatenate([rows(xs), weights.coll * s / P])
-    return grids_of, lagged, exact
+        return jnp.concatenate([rows(xs).reshape(-1), weights.coll * s / P])
+
+    def single(f):
+        return rows(f.reshape(P, n), spec)
+    return grids_of, lagged, exact, single
 
 
-def test_refinement_forms_match_jax(people):
-    """At a fixed x near the deep-overlap truth (G=12): the lagged form
-    with grids from another point, and the exact form with its
-    Jacobian (fields held fixed, live box frame), against JAX's
-    residuals and `jax.linearize` in two random directions."""
-    p, G = people, 12
-    grids_of, lagged, exact = _jax_forms(p, G)
+@pytest.fixture(scope="module")
+def linearized(people):
+    """JAX's values and tangents at G_LIN, in one compiled program (its
+    XLA compile is most of this module's time): the single-person rows
+    at xa; the lagged form at xb with the grids of xa; the exact form at
+    xb through `jax.linearize`; each tangent along one random direction
+    (a wrong column shows in it)."""
+    grids_of, lagged, exact, single = _jax_forms(people, G_LIN)
+
+    @jax.jit
+    def jax_side(fa, fb, d):
+        grids = grids_of(fa)
+        r_s, t_s = jax.jvp(single, (fa,), (d,))
+        r_l, t_l = jax.jvp(lambda f: lagged(f, grids), (fb,), (d,))
+        r_e, lin = jax.linearize(exact, fb)
+        return dict(single=r_s, single_t=t_s, lagged=r_l, lagged_t=t_l,
+                    exact=r_e, exact_t=lin(d))
+    out = jax_side(*(jnp.asarray(people[k][0])
+                     for k in ("flat", "flat_b", "dir")))
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def test_refinement_forms_match_jax(people, linearized):
+    """At a fixed x near the deep-overlap truth: the lagged form with
+    grids from another point, and the exact form with its Jacobian
+    (fields held fixed, live box frame), against JAX's residuals, its
+    forward mode and `jax.linearize`."""
+    p, want, G = people, linearized, G_LIN
     ta, tw, tc, to = p["ta"], p["tw"], p["tc"], p["to"]
     cfg = TS.FitConfig(spec=TE.EnergySpec(interpenetration=True,
                                           coll_grid_size=G),
@@ -236,45 +259,29 @@ def test_refinement_forms_match_jax(people):
     weights = TS.default_stages(cfg, torch.full((2,), 1080.0))[-1]
     forms = TM.make_grid_forms(TE.EnergySpec(coll_grid_size=G), ta, tc, to,
                                tw, None, weights, 2, 49, G)
-    rng = np.random.default_rng(3)
-    xa = p["flat"]
-    xb = (xa + rng.normal(0, 0.01, xa.shape)).astype(np.float32)
-    v = rng.normal(0, 1.0, (2, 98)).astype(np.float32)
-
-    @jax.jit
-    def jax_side(fa, fb, vs):
-        grids = grids_of(fa)
-        lag_t = jax.vmap(lambda d: jax.jvp(lambda f: lagged(f, grids),
-                                           (fb,), (d,))[1])(vs)
-        r, lin = jax.linearize(exact, fb)
-        return lagged(fb, grids), lag_t, r, jax.vmap(lin)(vs)
-    want = [np.asarray(a) for a in jax_side(jnp.asarray(xa[0]),
-                                            jnp.asarray(xb[0]),
-                                            jnp.asarray(v))]
-
-    tb = torch.from_numpy(xb)
-    grids = forms.grids_of(torch.from_numpy(xa))
+    tb = torch.from_numpy(p["flat_b"])
+    grids = forms.grids_of(torch.from_numpy(p["flat"]))
     r_lag, J_lag = TLM.ad_jacobian(lambda f: forms.joint_residual(f, grids),
                                    tb)
     r_ex, J_ex = forms.jac_exact(tb)
-    tv = torch.from_numpy(v)
-    _close(r_lag[0].numpy(), want[0], 1e-5)
-    _close((J_lag[0] @ tv.T).T.numpy(), want[1], 1e-4)
-    _close(r_ex[0].numpy(), want[2], 1e-5)
-    _close((J_ex[0] @ tv.T).T.numpy(), want[3], 1e-4)
+    tv = torch.from_numpy(p["dir"][0])
+    _close(r_lag[0].numpy(), want["lagged"], 1e-5)
+    _close((J_lag[0] @ tv).numpy(), want["lagged_t"], 1e-4)
+    _close(r_ex[0].numpy(), want["exact"], 1e-5)
+    _close((J_ex[0] @ tv).numpy(), want["exact_t"], 1e-4)
     np.testing.assert_array_equal(forms.residual_exact(tb).numpy(),
                                   r_ex.numpy())
-    assert want[2][-2:].min() > 1e3            # the bodies overlap
+    assert want["exact"][-2:].min() > 1e3       # the bodies overlap
 
 
 def test_fit_people_grid_matches_jax(people):
     """`fit_people` with the grid engine, hybrid schedule (1 lagged + 1
-    exact refinement iteration) at G=16, against the JAX call; the
-    budget and init_lambda 1.0 are the ones where both land in one
+    exact refinement iteration) at G=8, against the JAX call; the
+    weights, budget and init_lambda 1.0 are ones where both land in one
     basin (see the module docstring)."""
-    p, G = people, 16
-    kw = dict(pose_weights=(404.0, 57.4), shape_weights=(100.0, 10.0),
-              coll_weights=(0.0, 1000.0))
+    p, G = people, 8
+    kw = dict(pose_weights=(404.0,), shape_weights=(100.0,),
+              coll_weights=(1000.0,))
     jcfg = JFitConfig(
         spec=JE.EnergySpec(interpenetration=True, coll_grid_size=G),
         lm=JLM.LMOptions(max_iters=3, linsolve="chol", speculative=False,
