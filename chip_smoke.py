@@ -22,11 +22,14 @@ Phases (each prints one line; any failure exits non-zero):
      launch counters reset just before and read just after;
   6. [sdf] the three voxelizer kernels on two posed synthetic bodies
      (VPoser z ~ N(0, 0.8)), normalized as `person_grids` does:
-     at G=64 both against the plain `sdf_grid` on the card (the same
-     inside set, phi within atol 1e-5, voxels that differ bitwise
-     counted), the two-phase result bitwise equal to the brute force at
-     G=64 and G=128, device times per call, bounds from the pairs each
-     kernel evaluates;
+     at G=64 and G=128 both against the plain `sdf_grid` on the card
+     (the same inside set, phi within atol 1e-5, voxels that differ
+     bitwise counted) and the two-phase result bitwise equal to the
+     brute force; then the eight-body shape that [collide] voxelizes
+     (one launch, G=128), two-phase bitwise equal to brute force; per
+     shape the device times per call of phase A, phase B and the whole
+     two-phase wrapper, the admitted pairs per voxel, the phase-B groups
+     and their visits, and bounds from the pairs each kernel evaluates;
   7. [collide] the single-person fit with the collision term
      (`batched_fit_frames`, coll weights (0, 0, 1000, 4500), G=128, 8
      frames, library defaults, max_iters=40, as the [fit] phase), then
@@ -165,64 +168,103 @@ def event_ms(fn) -> float:
 
 
 def sdf_work(SK, tri: torch.Tensor, G: int, work=None):
-    """(bytes, operations) per kernel for triangles (M, F, 9) at G: each
-    input read once, each output written once; operations over the
-    (voxel, triangle) pairs each kernel evaluates: all of them for the
-    brute force, those the ny prefix and zmask admit for phase A, and
-    for phase B those of the chunks each flagged tile visited (the
-    kernel's own visit counts, `work` of `sdf_grid_fast_cuda`)."""
+    """(bytes, operations) per kernel for triangles (M, F, 9) at G, and
+    the pairs each kernel evaluates: each input read once, each output
+    written once; operations over the (voxel, triangle) pairs each
+    kernel evaluates: all of them for the brute force; for phase A the
+    per-face test (7 compares per face and row of 4 voxels) over the
+    faces of the chunks the brick mask admits, and the row form of the
+    crossing test (14 per face and row, 37 per voxel) over the (row,
+    face) pairs that pass it (the kernel's own count); for phase B the
+    distance over the chunks each group visited (the kernel's visit
+    counts) and the group's inside voxels; `work` is that of
+    `sdf_grid_fast_cuda`."""
     M, F = tri.shape[:2]
     N = G ** 3
     out = {"sdf_grid": (4.0 * (tri.numel() + M * N),
                         float(M * N * F * (SK.DIST_OPS + SK.CROSS_OPS)))}
+    pairs = {"sdf_grid": float(M * N * F)}
     if work is None:
-        return out
+        return out, pairs
     tb = work["tables"]
-    T, nc = tb.T, tb.nc
+    nb, nc = tb.nb, tb.nc
     dev = tri.device
-    nf = torch.clamp(F - torch.arange(nc, device=dev) * SK.CHUNK,
-                     max=SK.CHUNK).double()                     # (nc,)
-    lanes = torch.clamp(G * G - torch.arange(T, device=dev) * SK.TILE,
-                        max=SK.TILE).double()                   # (T,)
-    c = torch.arange(nc, device=dev)
-    admitted = ((c[None, None, :] < tb.ny[:, :, None])[:, None]
-                & (tb.zmask[:, :, None, :] > 0))                # (M,G,T,nc)
-    pairs_a = ((admitted.double() @ nf) * lanes).sum().item()
-    visits = work["visits"].reshape(M, G, T)
-    walked = (torch.arange(nc + 1, device=dev)[None, None, None, :]
-              < visits[..., None])                              # (M,G,T,nc+1)
-    faces = torch.cat([nf, nf.new_zeros(1)])[tb.order.long()]   # (M,G*T,nc+1)
-    pairs_b = ((walked.reshape(M, G * T, nc + 1).double() * faces).sum(-1)
-               .reshape(M, G, T) * lanes).sum().item()
-    idx = 4.0 * (tb.ny.numel() + tb.zmask.numel())
-    out["sdf_cross"] = (4.0 * (tri.numel() + M * N + M * G * T) + idx,
-                        pairs_a * SK.CROSS_OPS)
-    out["sdf_dist"] = (4.0 * (tri.numel() + 2 * M * N + 2 * M * G * T
-                              + tb.order.numel() + tb.lb2.numel()),
+    faces = torch.clamp(F - torch.arange(nc, device=dev) * SK.CHUNK,
+                        max=SK.CHUNK).double()                  # (nc,)
+    w = torch.clamp(G - torch.arange(nb, device=dev) * SK.BRICK,
+                    max=SK.BRICK).double()                      # (nb,)
+    wz, wy, wx = torch.meshgrid(w, w, w, indexing="ij")
+    voxels = (wz * wy * wx).reshape(-1)                         # (NB,)
+    rows = (wz * wy * torch.ceil(wx / SK.X_PER_THREAD)).reshape(-1)
+    admitted = tb.mask.double() @ faces                         # (M, NB)
+    pairs_a = (admitted * voxels).sum().item()
+    rows_a = (admitted * rows).sum().item()
+    evaluated = float(work["counts"][2])            # (row, face) pairs
+    n = int(work["counts"][0])
+    groups = work["work"][:n * SK.GROUP].reshape(n, SK.GROUP)
+    lanes = (groups >= 0).sum(-1).double()
+    pairs_b = (work["visits"][:n].double() * SK.CHUNK * lanes).sum().item()
+    out["sdf_cross"] = (
+        4.0 * (tb.tria.numel() + M * N + n * SK.GROUP) + tb.mask.numel(),
+        rows_a * SK.FACE_TEST_OPS + evaluated * (
+            SK.CROSS_ROW_OPS + SK.X_PER_THREAD * SK.CROSS_VOXEL_OPS))
+    out["sdf_dist"] = (4.0 * (tb.trib.numel() + tb.boxes.numel()
+                              + n * SK.GROUP + lanes.sum().item() + n),
                        pairs_b * SK.DIST_OPS)
-    return out
+    pairs.update(sdf_cross=pairs_a, sdf_dist=pairs_b,
+                 evaluated=evaluated * SK.X_PER_THREAD)
+    return out, pairs
+
+
+def posed_local(dev, n: int, seed: int):
+    """n posed synthetic smpl bodies (VPoser z ~ N(0, 0.8)) normalized as
+    `person_grids` does, their triangles (n, 13776, 9) and the faces."""
+    from mvsmplfitting_tpu_torch.models import vposer as V
+    from mvsmplfitting_tpu_torch.models.smpl import SMPLParams, smpl_forward
+    from mvsmplfitting_tpu_torch.ops import sdf as S
+    from mvsmplfitting_tpu_torch.synthetic import make_people_problem
+
+    assets, vw, _, _ = make_people_problem(0.2, device=dev)
+    z = np.random.default_rng(seed).normal(0, 0.8, (n, 32)).astype(
+        np.float32)
+    body_pose = V.decode(vw, torch.as_tensor(z, device=dev))
+    verts, _ = smpl_forward(assets, SMPLParams.zeros(n, device=dev),
+                            body_pose)
+    centers, scales = S.box_frame(verts)
+    local = ((verts - centers[:, None]) / scales[:, None, None]).contiguous()
+    return local, S.triangles(local, assets.faces), assets.faces
+
+
+def sdf_times(SK, tri: torch.Tensor, G: int, reps: int) -> dict:
+    """Device ms per call of phase A, phase B and the whole wrapper
+    (tables and both kernels).  Phase B takes a fresh copy of phase A's
+    counts each call: its work counter must start at 0."""
+    from mvsmplfitting_tpu_torch.ops import cuda_build
+    cross_fn, dist_fn = SK.bind_fast(cuda_build.load("sdf_grid_fast"))
+    stream = torch.cuda.current_stream(tri.device).cuda_stream
+    tb = SK.cull_tables(tri, G)
+    phi, lst, counts = SK.call_cross(cross_fn, tb, stream)
+    blocks = SK.dist_blocks(tri.device)
+    fresh = [counts.clone() for _ in range(2 * reps + 1)]   # cuda_ms's calls
+    return {
+        "sdf_cross": cuda_ms(lambda: SK.call_cross(cross_fn, tb, stream),
+                             reps=reps, warmup=1),
+        "sdf_dist": cuda_ms(lambda: SK.call_dist(dist_fn, tb, phi, lst,
+                                                 fresh.pop(), blocks,
+                                                 stream),
+                            reps=reps, warmup=1),
+        "whole": cuda_ms(lambda: SK.sdf_grid_fast_cuda(tri, G), reps=reps,
+                         warmup=1)}
 
 
 def sdf_phase(dev, kernels: dict) -> None:
     """[sdf]: the voxelizer kernels against the plain version and each
     other, their device times and bounds (see the module docstring)."""
-    from mvsmplfitting_tpu_torch.models import vposer as V
-    from mvsmplfitting_tpu_torch.models.smpl import SMPLParams, smpl_forward
     from mvsmplfitting_tpu_torch.ops import cuda_build
     from mvsmplfitting_tpu_torch.ops import sdf as S
     from mvsmplfitting_tpu_torch.ops import sdf_kernel as SK
-    from mvsmplfitting_tpu_torch.synthetic import make_people_problem
 
-    assets, vw, _, _ = make_people_problem(0.2, device=dev)
-    z = np.random.default_rng(3).normal(0, 0.8, (2, 32)).astype(np.float32)
-    params = SMPLParams.zeros(2, device=dev)
-    body_pose = V.decode(vw, torch.as_tensor(z, device=dev))
-    verts, _ = smpl_forward(assets, params, body_pose)
-    centers, scales = S.box_frame(verts)
-    local = ((verts - centers[:, None]) / scales[:, None, None]).contiguous()
-    faces = assets.faces
-    tri = S.triangles(local, faces)
-    cross_fn, dist_fn = SK.bind_fast(cuda_build.load("sdf_grid_fast"))
+    local, tri, faces = posed_local(dev, 2, seed=3)
     grid_fn = SK.bind_grid(cuda_build.load("sdf_grid"))
     stream = torch.cuda.current_stream(dev).cuda_stream
 
@@ -241,46 +283,61 @@ def sdf_phase(dev, kernels: dict) -> None:
         err = (b3 - plain).abs().max().item()
         assert err <= 1e-5, f"G={G}: |phi - plain| = {err}"
         ndiff = int((b3 != plain).sum())
-        tb = work["tables"]
-        inside_t, flags = SK.call_cross(cross_fn, tb, stream)
         reps = 3 if G == G_FIT else 10
-        ms = {
-            "sdf_grid": cuda_ms(lambda: SK.call_grid(grid_fn, tri, G, stream),
-                                reps=reps, warmup=1),
-            "sdf_cross": cuda_ms(lambda: SK.call_cross(cross_fn, tb, stream),
-                                 reps=reps, warmup=1),
-            "sdf_dist": cuda_ms(lambda: SK.call_dist(dist_fn, tb, inside_t,
-                                                     flags, stream),
-                                reps=reps, warmup=1),
-            "whole": cuda_ms(lambda: SK.sdf_grid_fast_cuda(tri, G),
-                             reps=reps, warmup=1)}
-        bounds = {k: bound_ms(*v) for k, v in sdf_work(SK, tri, G,
-                                                        work).items()}
-        visited = work["visits"].sum().item()
-        log("sdf", G=G, meshes=tri.shape[0], faces=tri.shape[1],
-            inside_voxels=inside, b4_equals_b3="bitwise",
-            max_abs_err_vs_plain=f"{err:.3e}", voxels_not_bitwise=ndiff,
-            flagged_tiles=int(flags.sum()), tiles=flags.numel(),
-            chunks_visited=int(visited),
-            b3_ms=f"{ms['sdf_grid']:.4f}", b4a_ms=f"{ms['sdf_cross']:.4f}",
-            b4b_ms=f"{ms['sdf_dist']:.4f}", b4_ms=f"{ms['whole']:.4f}",
-            plain_ms=f"{plain_ms:.1f}",
-            bounds_ms=json.dumps({k: round(v[0], 5)
-                                  for k, v in bounds.items()}).replace(" ",
-                                                                        ""))
-        timing[G] = (ms, plain_ms, bounds, err)
+        ms = sdf_times(SK, tri, G, reps)
+        ms["sdf_grid"] = cuda_ms(lambda: SK.call_grid(grid_fn, tri, G,
+                                                      stream),
+                                 reps=reps, warmup=1)
+        log_sdf(SK, tri, G, work, ms, inside=inside, b4_equals_b3="bitwise",
+                max_abs_err_vs_plain=f"{err:.3e}", voxels_not_bitwise=ndiff,
+                b3_ms=f"{ms['sdf_grid']:.4f}", plain_ms=f"{plain_ms:.1f}")
+        timing[G] = (ms, plain_ms, sdf_work(SK, tri, G, work)[0], err)
+
+    # The shape [collide] voxelizes: eight bodies in one launch, G=128.
+    _, tri8, _ = posed_local(dev, B_COLLIDE, seed=4)
+    b3 = SK.sdf_grid_cuda(tri8, G_FIT)
+    b4, work = SK.sdf_grid_fast_cuda(tri8, G_FIT, with_work=True)
+    torch.cuda.synchronize()
+    assert torch.equal(b4, b3), "8 bodies: two-phase != brute force"
+    inside = int((b3 > 0).sum())
+    assert inside > B_COLLIDE * G_FIT, f"8 bodies: {inside} inside voxels"
+    log_sdf(SK, tri8, G_FIT, work, sdf_times(SK, tri8, G_FIT, 3),
+            inside=inside, b4_equals_b3="bitwise")
+    del b3, b4, work, tri8
+
     ms, plain_ms, bounds, err = timing[G_FIT]   # the fits' grid size
     for name, label, line in (
             ("sdf_grid", "sdf_grid.cu", ":599"),
             ("sdf_cross", "sdf_grid_fast.cu", ":798"),
             ("sdf_dist", "sdf_grid_fast.cu", ":888")):
+        bnd, by = bound_ms(*bounds[name])
         kernels[name] = dict(
             name=name, route="cuda",
             source=f"mvsmplfitting_tpu_torch/csrc/{label}",
             replaces=f"mvsmplfitting_tpu/ops/sdf.py{line}",
             max_abs_err=err, ms=ms[name], plain_ms=plain_ms,
-            bound_ms=bounds[name][0], bound_by=bounds[name][1],
-            library_ms=None)
+            bound_ms=bnd, bound_by=by, library_ms=None)
+
+
+def log_sdf(SK, tri: torch.Tensor, G: int, work: dict, ms: dict,
+            **extra) -> None:
+    """One [sdf] line: the shape, the work each phase evaluated, the
+    device times and the bounds."""
+    work_by, pairs = sdf_work(SK, tri, G, work)
+    bounds = {k: round(bound_ms(*v)[0], 5) for k, v in work_by.items()}
+    M = tri.shape[0]
+    n = int(work["counts"][0])
+    lanes = int((work["work"][:n * SK.GROUP] >= 0).sum())
+    log("sdf", G=G, meshes=M, faces=tri.shape[1], **extra,
+        admitted_pairs_per_voxel=f"{pairs['sdf_cross'] / (M * G ** 3):.1f}",
+        evaluated_pairs_per_voxel=f"{pairs['evaluated'] / (M * G ** 3):.2f}",
+        groups=n, group_lanes_used=f"{lanes / max(1, n * SK.GROUP):.3f}",
+        chunks_per_group=f"{work['visits'][:n].double().mean().item():.2f}",
+        max_chunks_per_group=int(work["visits"][:n].max()),
+        faces_per_inside_voxel=f"{pairs['sdf_dist'] / max(1, lanes):.1f}",
+        b4a_ms=f"{ms['sdf_cross']:.4f}", b4b_ms=f"{ms['sdf_dist']:.4f}",
+        b4_ms=f"{ms['whole']:.4f}",
+        bounds_ms=json.dumps(bounds).replace(" ", ""))
 
 
 class VoxelizerClock:

@@ -17,8 +17,13 @@
 //             + 26 compares + the running minimum
 //   crossing  sdf_pair_crossing  60 = 52 arithmetic (1 divide)
 //             + 7 compares + the count
-// ops/sdf_kernel.py holds them as DIST_OPS and CROSS_OPS for the bounds
-// that chip_smoke.py computes.
+//   crossing, row form (sdf_cross_row + sdf_cross_voxel, the two-phase
+//             kernel): 14 per triangle and x-row of voxels, then 37 per
+//             voxel (27 arithmetic + 9 for the pre-test + the count),
+//             and 10 more (the divide, 3 products, 1 add, 5 compares)
+//             for the few pairs that pass the pre-test
+// ops/sdf_kernel.py holds them as DIST_OPS, CROSS_OPS, CROSS_ROW_OPS and
+// CROSS_VOXEL_OPS for the bounds that chip_smoke.py computes.
 #pragma once
 
 constexpr int SDF_THREADS = 128;  // voxels per block, one per thread
@@ -121,6 +126,106 @@ __device__ __forceinline__ int sdf_pair_crossing(const float* t, float px,
           tt >= 0.0f)
              ? 1
              : 0;
+}
+
+// Row form of sdf_pair_crossing, for csrc/sdf_grid_fast.cu.  Voxels of
+// one x-row share py and pz (so dyr and dzr), and with them every term of
+// sdf_pair_crossing that involves only the triangle, py and pz:
+// sdf_cross_row computes those once per triangle and row, sdf_cross_voxel
+// finishes one voxel of the row.  Each value is the same IEEE operation on
+// the same operands as in sdf_pair_crossing (the names say which), so
+// the result is the same 0 or 1, bit for bit.  The triangle comes as
+// t = [a, ab, ac] with ab = b - a and ac = c - a subtracted once per
+// triangle by the wrapper: the same single subtraction.
+struct SdfCrossRow {
+  float ax, abx, aby, abz, acx, acy, acz;
+  float pvx, dzr_acx, dyr_acx;            // pvx; products of pvy, pvz
+  float tvy, tvz, qvx, tvz_abx, tvy_abx;  // tv's y, z; qvx; of qvy, qvz
+  float abx_pvx, acx_qvx;                 // first products of det and tt
+};
+
+__device__ __forceinline__ SdfCrossRow sdf_cross_row(const float* t,
+                                                     float py, float pz,
+                                                     float dyr, float dzr) {
+  SdfCrossRow r;
+  r.ax = t[0];
+  const float ay = t[1], az = t[2];
+  r.abx = t[3], r.aby = t[4], r.abz = t[5];
+  r.acx = t[6], r.acy = t[7], r.acz = t[8];
+  r.pvx = dyr * r.acz - dzr * r.acy;
+  r.dzr_acx = dzr * r.acx;
+  r.dyr_acx = dyr * r.acx;
+  r.tvy = py - ay;
+  r.tvz = pz - az;
+  r.qvx = r.tvy * r.abz - r.tvz * r.aby;
+  r.tvz_abx = r.tvz * r.abx;
+  r.tvy_abx = r.tvy * r.abx;
+  r.abx_pvx = r.abx * r.pvx;
+  r.acx_qvx = r.acx * r.qvx;
+  return r;
+}
+
+// sdf_pair_crossing for the voxel (px, py, pz) of row r.  The numerators
+// of u, vv and tt and det are computed as there.  A pre-test without the
+// divide then rejects the pair when it provably fails: with s the sign
+// of det, u >= 0 needs s*un >= -1e-6 |det| (rn(un * inv) can be -0.0
+// only when |un| < 2^-150 |det|), u <= 1 needs s*un <= 1.00001 |det|
+// (inv = 1/det within 2^-24), and the same for vv, tt and u + vv.  Only
+// pairs that pass it take the divide and the exact tests of
+// sdf_pair_crossing, so the result is the same.
+__device__ __forceinline__ int sdf_cross_voxel(const SdfCrossRow& r,
+                                               float px, float dxr,
+                                               float dyr, float dzr) {
+  const float pvy = r.dzr_acx - dxr * r.acz;
+  const float pvz = dxr * r.acy - r.dyr_acx;
+  const float det = r.abx_pvx + r.aby * pvy + r.abz * pvz;
+  const float tvx = px - r.ax;
+  const float un = tvx * r.pvx + r.tvy * pvy + r.tvz * pvz;
+  const float qvy = r.tvz_abx - tvx * r.abz;
+  const float qvz = tvx * r.aby - r.tvy_abx;
+  const float vn = dxr * r.qvx + dyr * qvy + dzr * qvz;
+  const float tn = r.acx_qvx + r.acy * qvy + r.acz * qvz;
+  const float D = fabsf(det);
+  const bool neg = det < 0.0f;
+  const float U = neg ? -un : un, V = neg ? -vn : vn, T = neg ? -tn : tn;
+  const float lo = -1e-6f * D, hi = D * 1.00001f;
+  if (!(D > 1e-7f && U >= lo && V >= lo && T >= lo && U <= hi &&
+        U + V <= hi))
+    return 0;
+  const float inv = 1.0f / det;  // ok holds: as 1.0f / (ok ? det : 1.0f)
+  const float u = un * inv, vv = vn * inv, tt = tn * inv;
+  return (u >= 0.0f && u <= 1.0f && vv >= 0.0f && u + vv <= 1.0f &&
+          tt >= 0.0f)
+             ? 1
+             : 0;
+}
+
+// Asynchronous 16-byte copy from device to shared memory (cp.async,
+// sm_80+), its commit and its wait.  Compiled for the host (the tests'
+// stand-in for the CUDA runtime) they are a plain copy and no-ops.
+__device__ __forceinline__ void sdf_copy16(void* smem, const void* gmem) {
+#ifdef __CUDA_ARCH__
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+#else
+  *static_cast<float4*>(smem) = *static_cast<const float4*>(gmem);
+#endif
+}
+
+__device__ __forceinline__ void sdf_copy_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+// Wait until at most N of this thread's committed copy groups are pending.
+template <int N>
+__device__ __forceinline__ void sdf_copy_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+#endif
 }
 
 // Stage triangles [f0, f0 + nf) of one mesh into shared memory, all

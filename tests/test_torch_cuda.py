@@ -97,7 +97,8 @@ def test_cuda_tensors_never_take_the_plain_path(cuda_device, monkeypatch):
 def test_sdf_kernels_on_card(cuda_device):
     """Both voxelizers on two posed bodies at G=32 (one launch per kernel
     for the pair): bitwise equal to each other and to the plain version,
-    which runs the same IEEE operations (`csrc/sdf_common.cuh`)."""
+    which runs the same IEEE operations (`csrc/sdf_common.cuh`); the
+    two-phase one's work list holds exactly the inside voxels."""
     verts, faces = posed_bodies()
     verts, faces = verts.to(cuda_device), faces.to(cuda_device)
     tri = sdf_ops.triangles(verts, faces)
@@ -113,3 +114,14 @@ def test_sdf_kernels_on_card(cuda_device):
     assert torch.equal(b4, b3)
     assert torch.equal(b3 > 0, plain > 0)
     torch.testing.assert_close(b3, plain, rtol=0.0, atol=1e-5)
+    # Phase A's work list holds each inside voxel once; every group of
+    # phase B visited a chunk.
+    _, work = SK.sdf_grid_fast_cuda(tri, 32, with_work=True)
+    n = int(work["counts"][0])
+    listed = work["work"][:n * SK.GROUP]
+    listed = listed[listed >= 0].long()
+    inside = torch.zeros(b3.numel(), dtype=torch.bool, device=cuda_device)
+    inside[listed] = True
+    assert listed.numel() == int(inside.sum())
+    assert torch.equal(inside.reshape(b3.shape), b3 > 0)
+    assert bool((work["visits"][:n] > 0).all())

@@ -29,8 +29,8 @@ from mvsmplfitting_tpu_torch.ops import sdf as sdf_ops
 from mvsmplfitting_tpu_torch.ops import sdf_kernel as SK
 from mvsmplfitting_tpu_torch.ops import vposer_kernel as VK
 
-from torch_port_helpers import (icosphere, port_assets, posed_bodies,
-                                rand_joint_inputs, vposer_pair)
+from torch_port_helpers import (icosphere, phase_b_walk, port_assets,
+                                posed_bodies, rand_joint_inputs, vposer_pair)
 
 STUB_DIR = os.path.join(os.path.dirname(__file__), "cuda_host")
 LAUNCH = re.compile(r"(\w+)<<<(.*?),(.*?),.*?>>>\((.*?)\);", re.S)
@@ -102,9 +102,12 @@ def _sdf_batches():
 @pytest.mark.parametrize("G", [8, 12])
 def test_sdf_sources_on_host(host_libs, G):
     """Both voxelizers, bitwise against the plain version: the pair
-    arithmetic is the same IEEE operations in the same order.  At G=12,
-    G*G = 144 is not a multiple of the 128-voxel tile, so tiles straddle
-    rows and the last tile of a slice is partial."""
+    arithmetic is the same IEEE operations in the same order.  At G=12
+    the grid is not a multiple of the 8-voxel brick, so the last bricks
+    of each axis are ragged.  Phase A's work list holds exactly the
+    inside voxels, in groups of 8 from one brick each (padding last),
+    and every group visits as many chunks as the plain mirror of its walk
+    (`phase_b_walk`)."""
     grid_fn = SK.bind_grid(host_libs["sdf_grid"])
     cross_fn, dist_fn = SK.bind_fast(host_libs["sdf_grid_fast"])
     for name, verts, faces in _sdf_batches():
@@ -113,16 +116,32 @@ def test_sdf_sources_on_host(host_libs, G):
         assert (want > 0).any(), name
         got3 = SK.call_grid(grid_fn, tri, G, None)
         tb = SK.cull_tables(tri, G)
-        inside, flags = SK.call_cross(cross_fn, tb, None)
-        got4, visits = SK.call_dist(dist_fn, tb, inside, flags, None)
+        phi, work, counts = SK.call_cross(cross_fn, tb, None)
+        visits = SK.call_dist(dist_fn, tb, phi, work, counts, 2, None)
         assert torch.equal(got3, want), name
-        assert torch.equal(got4, want), name
-        assert torch.equal(inside.reshape(want.shape) > 0, want > 0), name
-        # The tile flags are the or of the tile's inside voxels, and only
-        # flagged tiles visit chunks (at least one each).
-        T = tb.T
-        per_tile = torch.nn.functional.pad(
-            inside.reshape(-1, G, G * G), (0, T * SK.TILE - G * G))
-        any_in = per_tile.reshape(-1, G * T, SK.TILE).amax(-1)
-        assert torch.equal(flags, any_in), name
-        assert torch.equal(visits > 0, flags > 0), name
+        assert torch.equal(phi, want), name
+        n = int(counts[0])
+        groups = work[:n * SK.GROUP].reshape(n, SK.GROUP).long()
+        listed = groups[groups >= 0]
+        inside = torch.zeros(want.numel(), dtype=torch.bool)
+        inside[listed] = True
+        assert listed.numel() == int(inside.sum()), name      # no repeats
+        assert torch.equal(inside.reshape(want.shape), want > 0), name
+        # One brick per group; padding only after the voxels; each brick
+        # fills as few groups as it can.
+        lin = groups.clamp_min(0) % G ** 3
+        brick = ((groups.clamp_min(0) // G ** 3 * tb.nb ** 3)
+                 + (lin // G ** 2 // SK.BRICK * tb.nb
+                    + lin // G % G // SK.BRICK) * tb.nb
+                 + lin % G // SK.BRICK)
+        assert bool((brick == brick[:, :1]).where(groups >= 0, True).all())
+        valid = (groups >= 0).int()
+        assert bool((valid[:, 1:] <= valid[:, :-1]).all()), name
+        per_brick = torch.bincount(brick[groups >= 0])
+        assert n == int(((per_brick + SK.GROUP - 1) // SK.GROUP).sum())
+        # Each group's walk visits as many chunks as the plain mirror's.
+        for g in range(n):
+            vox = groups[g][groups[g] >= 0]
+            m = int(vox[0]) // G ** 3
+            want_v = phase_b_walk(tb, m, vox - m * G ** 3)[0]
+            assert int(visits[g]) == want_v > 0, (name, g)

@@ -33,7 +33,7 @@ from mvsmplfitting_tpu.ops import sdf as J
 from mvsmplfitting_tpu_torch.ops import sdf as S
 from mvsmplfitting_tpu_torch.ops import sdf_kernel as SK
 
-from torch_port_helpers import icosphere, posed_bodies
+from torch_port_helpers import icosphere, phase_b_walk, posed_bodies
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -116,42 +116,90 @@ def test_fast_wrapper_matches_jax_pallas_interpret():
         np.testing.assert_allclose(g, w, atol=1e-5)
 
 
-def test_cull_tables_are_conservative():
-    """Brute force at G=8 over every tile and chunk: a chunk that phase A
-    skips (past the tile's `ny` prefix, or masked for the slice) has no
-    crossing for any voxel of the tile; the phase-B bound of every chunk
-    is at most the squared distance of any voxel of the tile to any of
-    its faces; every tile visits its chunks in nondecreasing bound, with
-    the +inf guard last."""
-    G = 8
+def _brick_rows(G, nb):
+    """The two-phase kernel's threads (csrc/sdf_grid_fast.cu), 128 per
+    brick, each with a row of 4 consecutive x voxels: their first x, y
+    and z (nb^3, 128) and the bricks' voxels in the kernel's order
+    (nb^3, 512), -1 where a ragged brick leaves the grid."""
+    t = torch.arange(128)
+    b = torch.arange(nb ** 3)[:, None]
+    x0 = (b % nb) * SK.BRICK + ((t >> 3) & 1) * 4
+    y = (b // nb % nb) * SK.BRICK + ((t & 3) | (((t >> 4) & 1) << 2))
+    z = (b // nb ** 2) * SK.BRICK + (((t >> 2) & 1) | (((t >> 5) & 3) << 1))
+    x = x0[..., None] + torch.arange(4)
+    ids = torch.where((x < G) & (y < G)[..., None] & (z < G)[..., None],
+                      (z[..., None] * G + y[..., None]) * G + x, -1)
+    return x0, y, z, ids.reshape(nb ** 3, 512)
+
+
+@pytest.mark.parametrize("G", [16, 12])
+def test_cull_tables_are_conservative(G):
+    """With the plain pair functions, over every brick and chunk: a chunk
+    that phase A's mask drops has no crossing with any voxel of the
+    brick; a face of an admitted chunk that phase A's per-face test (its
+    box minimum and projected box against each thread's row of 4 voxels)
+    rules out for a row has no crossing with the row's voxels; and phase
+    B's walk, run as the kernel runs it on each group of 8 inside voxels
+    of a brick (`phase_b_walk`), drops no chunk with a face that would
+    lower an inside voxel's minimum.  At G=12 the last brick of each
+    axis is ragged (4 voxels)."""
     v1, faces = icosphere(radius=0.45, center=(0.2, 0.1, -0.1), n=9)
     v2, _ = icosphere(radius=0.3, center=(-0.4, 0.5, 0.3), n=9)
     verts = torch.from_numpy(np.concatenate([v1, v2]))
     faces = torch.from_numpy(np.concatenate([faces, faces + len(v1)]))
     tb = SK.cull_tables(S.triangles(verts[None], faces), G)
-    tri = tb.tri[0]                                       # y-sorted
+    tri, nc = tb.trib[0], tb.nc                      # ordered, padded
     centers = S.voxel_centers(G)
     comps = [tri[:, i][None] for i in range(9)]
     px, py, pz = (centers[:, i:i + 1] for i in range(3))
     cross = S._pair_crossing(*comps, px, py, pz, -1.0 - px, -1.0 - py,
-                             -1.0 - pz)
-    d2 = S._pair_dist_sq(*comps, px, py, pz)
-    chunk = torch.arange(tri.shape[0]) // SK.CHUNK
-    GG, T = G * G, tb.T
-    for k in range(G):
-        for t in range(T):
-            lanes = torch.arange(t * SK.TILE, min((t + 1) * SK.TILE, GG))
-            vox = k * GG + lanes
-            for c in range(tb.nc):
-                in_c = chunk == c
-                admitted = c < tb.ny[0, t] and tb.zmask[0, k, c] > 0
-                if not admitted:
-                    assert cross[vox][:, in_c].sum() == 0, (k, t, c)
-                pos = (tb.order[0, k * T + t, :tb.nc] == c).nonzero().item()
-                assert tb.lb2[0, k * T + t, pos] <= d2[vox][:, in_c].min()
-            lb = tb.lb2[0, k * T + t]
-            assert bool((lb[1:] >= lb[:-1]).all()) and lb[-1] == np.inf
-    assert tb.ny.min() < tb.nc or tb.zmask.min() == 0   # something culled
+                             -1.0 - pz).reshape(G ** 3, nc, SK.CHUNK)
+    d2 = S._pair_dist_sq(*comps, px, py, pz).reshape(G ** 3, nc, SK.CHUNK)
+    inside = cross.sum((1, 2)) % 2 == 1
+    assert int(inside.sum()) > 50
+
+    x0, y, z, order = _brick_rows(G, tb.nb)
+    mask = tb.mask[0]                                # (NB, nc)
+    rec = tb.tria[0].reshape(nc, SK.CHUNK, 16)
+    cross_f = cross.reshape(G ** 3, nc * SK.CHUNK)
+
+    def coord(i):
+        return -1.0 + (i.float() + 0.5) * S.voxel_step(G)
+
+    dropped_b = skipped = 0
+    for b in range(tb.nb ** 3):
+        vox = order[b][order[b] >= 0]
+        dropped = ~mask[b]
+        assert int(cross[vox][:, dropped].sum()) == 0, (b, dropped)
+        # The per-face test, row by row, as the kernel computes it.
+        rx0, rx3 = coord(x0[b]), coord(x0[b] + 3)
+        ry, rz = coord(y[b]), coord(z[b])
+        e0, e3, ey, ez = rx0 + 1.0, rx3 + 1.0, ry + 1.0, rz + 1.0
+        s0, s3 = e0 + ey + ez, e3 + ey + ez
+        ru = torch.stack([e0 / s0, e3 / s3])
+        rv = torch.stack([ey / s0, ey / s3])
+        fid = torch.nonzero(mask[b].repeat_interleave(SK.CHUNK)).flatten()
+        f = rec.reshape(-1, 16)[fid]
+        near = ((f[:, 9] <= rx3[:, None]) & (f[:, 10] <= ry[:, None])
+                & (f[:, 11] <= rz[:, None])
+                & (f[:, 12] <= ru.amax(0)[:, None])
+                & (ru.amin(0)[:, None] <= f[:, 13])
+                & (f[:, 14] <= rv.amax(0)[:, None])
+                & (rv.amin(0)[:, None] <= f[:, 15]))      # (128, faces)
+        rows = order[b].reshape(128, 4)
+        for t in range(128):
+            vt = rows[t][rows[t] >= 0]
+            off = fid[~near[t]]
+            assert int(cross_f[vt][:, off].sum()) == 0, (b, t)
+            skipped += len(off)
+        ins = vox[inside[vox]]
+        for g0 in range(0, len(ins), SK.GROUP):
+            grp = ins[g0:g0 + SK.GROUP]
+            _, run_min, left = phase_b_walk(tb, 0, grp)
+            dropped_b += int(left.sum())
+            full = d2[grp].reshape(len(grp), -1).amin(-1)
+            assert torch.equal(run_min, full), (b, g0)
+    assert int((~mask).sum()) > 0 and skipped > 0 and dropped_b > 0
 
 
 def test_grid_sample_matches_jax_and_torch():

@@ -124,3 +124,34 @@ def posed_bodies(num=2, seed=3):
     centers, scales = box_frame(verts)
     local = (verts - centers[:, None]) / scales[:, None, None]
     return local.contiguous(), assets.faces
+
+
+def phase_b_walk(tb, m, vox):
+    """The two-phase voxelizer's phase-B walk (`csrc/sdf_grid_fast.cu`,
+    `sdf_dist_kernel`) for one group of inside voxels `vox` of mesh m,
+    with the plain pair function and the kernel's fp32 bounds: chunks by
+    increasing squared box gap (lowest index first among equals), stop
+    once the next gap reaches worst * (1 + 1e-4) + 1e-9.  Returns (chunks
+    visited, the voxels' minima of d^2, mask of the chunks left)."""
+    import torch
+
+    from mvsmplfitting_tpu_torch.ops import sdf as S
+    from mvsmplfitting_tpu_torch.ops import sdf_kernel as SK
+    p = S.voxel_centers(tb.G)[vox]
+    lo, hi = p.amin(0), p.amax(0)
+    box = tb.boxes[m]
+    gap = torch.clamp_min(torch.maximum(box[:, :3] - hi, lo - box[:, 3:]),
+                          0.0)
+    lb2 = gap[:, 0] * gap[:, 0] + gap[:, 1] * gap[:, 1] + gap[:, 2] * gap[:, 2]
+    tri = tb.trib[m].reshape(tb.nc, SK.CHUNK, 9)
+    run_min = torch.full((len(vox),), 1e6)
+    left = torch.ones(tb.nc, dtype=torch.bool)
+    for c in torch.argsort(lb2, stable=True).tolist():
+        if not lb2[c] < run_min.max() * (1.0 + 1e-4) + 1e-9:
+            break
+        comps = [tri[c, :, i][None] for i in range(9)]
+        d2 = S._pair_dist_sq(*comps, p[:, 0:1], p[:, 1:2], p[:, 2:3])
+        run_min = torch.minimum(run_min, d2.amin(-1))
+        left[c] = False
+    return int((~left).sum()), run_min, left
+
