@@ -7,13 +7,16 @@ Phases (each prints one line; any failure exits non-zero):
      TF32 off;
   2. build: the four CUDA sources of `mvsmplfitting_tpu_torch/csrc` with
      nvcc for sm_90a, one process each, all at once, with the seconds it
-     took and ptxas's register lines;
-  3. kernels at B=512: each kernel against its plain PyTorch version on
-     the card (joint Jacobian for smpl and smpllsp at RTOL 3e-5 / ATOL
-     1e-5; VPoser tail at z~N(0,0.6) and z~N(0,1e-3), aa at 3e-5 / 1e-5,
-     D at 3e-4 / 3e-4 max|D|), with device times per call (CUDA events
-     around queued calls; the tail's is the larger of its two batches)
-     and bounds;
+     took and, per kernel, ptxas's registers, spill bytes and static
+     shared memory;
+  3. kernels at B=512, the batched fit's batch, and at the batches the
+     collision fits call them with (B=8 for [collide], B=2 for [multi]'s
+     two people): each kernel against its plain PyTorch version on the
+     card (joint Jacobian for smpl and smpllsp at RTOL 3e-5 / ATOL 1e-5;
+     VPoser tail at z~N(0,0.6) and z~N(0,1e-3), aa at 3e-5 / 1e-5, D at
+     3e-4 / 3e-4 max|D|), with device times per call (CUDA events around
+     queued calls; the tail's is the larger of its two batches) and
+     bounds;
   4. short fit parity: an 8-frame batched fit (init + 4 stages, chol,
      classic LM, 3 iterations) on the card and on the CPU plain path,
      stage losses at rtol 1e-3;
@@ -47,12 +50,15 @@ Phases (each prints one line; any failure exits non-zero):
      iterations at init_lambda 1.0, 1 lagged + 1 exact refinement
      iteration; losses at rtol 1e-2, sums at rtol 5e-2);
 then the card line, the kernels JSON line and the result line.  Each
-path's launch counters are set to 0 just before it and read just after.
+path's launch counters are set to 0 just before it and read just after;
+the JSON line gives every kernel's launches summed over [fit], [collide]
+and [multi].
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -66,6 +72,7 @@ PEAK_BYTES = 3.35e12
 B_KERNEL = 512
 B_FIT = 512
 B_COLLIDE = 8
+B_MULTI = 2            # [multi]'s two people, fitted side by side
 G_FIT = 128            # the reference's production grid (fitting.py:374)
 G_CHECK = 64           # the grid of the kernel-vs-plain check
 
@@ -112,6 +119,32 @@ def bound_ms(nbytes: float, flops: float):
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
+
+
+def ptxas_summary(log_text: str) -> list:
+    """Per kernel in nvcc's `-Xptxas -v` output: its (mangled) name,
+    registers, stack frame and spill stores/loads in bytes, static shared
+    memory."""
+    out, cur = [], None
+    for line in log_text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = {"kernel": m.group(1)}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur["stack"] = int(m.group(1))
+            cur["spill"] = f"{m.group(2)}/{m.group(3)}"
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def joint_kernel_work(jm, tables, B: int):
@@ -588,6 +621,7 @@ def main() -> int:
     from mvsmplfitting_tpu_torch.models.joint_model import with_joint_model
     from mvsmplfitting_tpu_torch.ops import cuda_build
     from mvsmplfitting_tpu_torch.ops import joint_kernel as JK
+    from mvsmplfitting_tpu_torch.ops import sdf_kernel as SK
     from mvsmplfitting_tpu_torch.ops import vposer_kernel as VK
     from mvsmplfitting_tpu_torch.parallel.batched import (
         BatchedFitInputs, batched_fit_frames)
@@ -607,13 +641,13 @@ def main() -> int:
     logs = cuda_build.build()
     for name in cuda_build.KERNEL_SOURCES:
         cuda_build.load(name)
-    ptxas = [ln.strip() for text in logs.values() for ln in text.splitlines()
-             if "registers" in ln or "spill" in ln]
     log("build", seconds=f"{time.perf_counter() - t0:.2f}",
-        sources=",".join(cuda_build.KERNEL_SOURCES),
-        ptxas=repr(" | ".join(ptxas)))
+        sources=",".join(cuda_build.KERNEL_SOURCES))
+    for name, text in logs.items():
+        for info in ptxas_summary(text):
+            log("build", source=name, **info)
 
-    # ---- 3. kernels against their plain versions, B=512 -----------
+    # ---- 3. kernels against their plain versions, B=512, 8, 2 ----
     rng = np.random.default_rng(0)
     B = B_KERNEL
     kernels = {}
@@ -621,33 +655,38 @@ def main() -> int:
     def t(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
+    # B1 and B2 at the fit's batch (the JSON line's numbers) and at the
+    # collision fits' batches.
     jj_err, jj_ms, jj_plain, jj_bound = 0.0, None, None, None
     for model_type in ("smpl", "smpllsp"):
         jm = with_joint_model(synthetic_smpl(model_type,
                                              device=dev)).joint_model
-        theta = t(rng.normal(0, 0.4, (B, 72)))
-        betas = t(rng.normal(0, 1.0, (B, 10)))
-        scale = t(rng.uniform(0.7, 1.5, (B,)))
-        gj, gb = JK.joint_jacobian_cuda(jm, theta, betas, scale)
-        torch.cuda.synchronize()
-        wj, wb = JK.joint_jacobian_plain(jm, theta, betas, scale)
-        torch.testing.assert_close(gj, wj, rtol=3e-5, atol=1e-5)
-        err = (gj - wj).abs().max().item()
-        for k in wb:
-            torch.testing.assert_close(gb[k], wb[k], rtol=3e-5, atol=1e-5,
-                                       msg=f"{model_type} block {k}")
-            err = max(err, (gb[k] - wb[k]).abs().max().item())
-        ms = cuda_ms(lambda: JK.joint_jacobian_cuda(jm, theta, betas, scale))
-        plain = cuda_ms(lambda: JK.joint_jacobian_plain(jm, theta, betas,
-                                                        scale), reps=10)
-        bnd, by = bound_ms(*joint_kernel_work(
-            jm, JK.kernel_tables(jm, dev), B))
-        log("kernel", name="joint_jacobian", model=model_type, B=B,
-            max_abs_err=f"{err:.3e}", ms=f"{ms:.4f}",
-            plain_ms=f"{plain:.4f}", bound_ms=f"{bnd:.5f}", bound_by=by)
-        jj_err = max(jj_err, err)
-        if model_type == "smpl":   # the main path's model
-            jj_ms, jj_plain, jj_bound = ms, plain, (bnd, by)
+        for Bk in (B, B_COLLIDE, B_MULTI):
+            theta = t(rng.normal(0, 0.4, (Bk, 72)))
+            betas = t(rng.normal(0, 1.0, (Bk, 10)))
+            scale = t(rng.uniform(0.7, 1.5, (Bk,)))
+            gj, gb = JK.joint_jacobian_cuda(jm, theta, betas, scale)
+            torch.cuda.synchronize()
+            wj, wb = JK.joint_jacobian_plain(jm, theta, betas, scale)
+            torch.testing.assert_close(gj, wj, rtol=3e-5, atol=1e-5)
+            err = (gj - wj).abs().max().item()
+            for k in wb:
+                torch.testing.assert_close(gb[k], wb[k], rtol=3e-5,
+                                           atol=1e-5,
+                                           msg=f"{model_type} block {k}")
+                err = max(err, (gb[k] - wb[k]).abs().max().item())
+            ms = cuda_ms(lambda: JK.joint_jacobian_cuda(jm, theta, betas,
+                                                        scale))
+            plain = cuda_ms(lambda: JK.joint_jacobian_plain(
+                jm, theta, betas, scale), reps=10)
+            bnd, by = bound_ms(*joint_kernel_work(
+                jm, JK.kernel_tables(jm, dev), Bk))
+            log("kernel", name="joint_jacobian", model=model_type, B=Bk,
+                max_abs_err=f"{err:.3e}", ms=f"{ms:.4f}",
+                plain_ms=f"{plain:.4f}", bound_ms=f"{bnd:.5f}", bound_by=by)
+            jj_err = max(jj_err, err)
+            if model_type == "smpl" and Bk == B:   # the main path's model
+                jj_ms, jj_plain, jj_bound = ms, plain, (bnd, by)
     kernels["joint_jacobian"] = dict(
         name="joint_jacobian", route="cuda",
         source="mvsmplfitting_tpu_torch/csrc/joint_jacobian.cu",
@@ -660,26 +699,29 @@ def main() -> int:
     w = V.load_npz(VPOSER_NPZ, device=dev)
     vt_err, vt_ms, vt_plain = 0.0, 0.0, 0.0
     vt_bound = bound_ms(*vposer_tail_work(B))
-    for sigma in (0.6, 1e-3):
-        z = t(rng.normal(0, sigma, (B, 32)))
-        o, Do = V.mlp_head(w, z)
-        o, Do = o.contiguous(), Do.contiguous()
-        aa1, D1 = VK.tail_cuda(o, Do)
-        torch.cuda.synchronize()
-        aa0, D0 = VK.tail_plain(o, Do)
-        torch.testing.assert_close(aa1, aa0, rtol=3e-5, atol=1e-5)
-        sc = max(D0.abs().max().item(), 1.0)
-        torch.testing.assert_close(D1, D0, rtol=3e-4, atol=3e-4 * sc)
-        err = max((aa1 - aa0).abs().max().item(),
-                  (D1 - D0).abs().max().item())
-        ms = cuda_ms(lambda: VK.tail_cuda(o, Do))
-        plain = cuda_ms(lambda: VK.tail_plain(o, Do), reps=10)
-        log("kernel", name="vposer_tail", z_sigma=sigma, B=B,
-            max_abs_err=f"{err:.3e}", ms=f"{ms:.4f}",
-            plain_ms=f"{plain:.4f}", bound_ms=f"{vt_bound[0]:.5f}",
-            bound_by=vt_bound[1])
-        vt_err, vt_ms, vt_plain = (max(vt_err, err), max(vt_ms, ms),
-                                   max(vt_plain, plain))
+    for Bk in (B, B_COLLIDE, B_MULTI):
+        bk_bound = bound_ms(*vposer_tail_work(Bk))
+        for sigma in (0.6, 1e-3):
+            z = t(rng.normal(0, sigma, (Bk, 32)))
+            o, Do = V.mlp_head(w, z)
+            o, Do = o.contiguous(), Do.contiguous()
+            aa1, D1 = VK.tail_cuda(o, Do)
+            torch.cuda.synchronize()
+            aa0, D0 = VK.tail_plain(o, Do)
+            torch.testing.assert_close(aa1, aa0, rtol=3e-5, atol=1e-5)
+            sc = max(D0.abs().max().item(), 1.0)
+            torch.testing.assert_close(D1, D0, rtol=3e-4, atol=3e-4 * sc)
+            err = max((aa1 - aa0).abs().max().item(),
+                      (D1 - D0).abs().max().item())
+            ms = cuda_ms(lambda: VK.tail_cuda(o, Do))
+            plain = cuda_ms(lambda: VK.tail_plain(o, Do), reps=10)
+            log("kernel", name="vposer_tail", z_sigma=sigma, B=Bk,
+                max_abs_err=f"{err:.3e}", ms=f"{ms:.4f}",
+                plain_ms=f"{plain:.4f}", bound_ms=f"{bk_bound[0]:.5f}",
+                bound_by=bk_bound[1])
+            vt_err = max(vt_err, err)
+            if Bk == B:
+                vt_ms, vt_plain = max(vt_ms, ms), max(vt_plain, plain)
     kernels["vposer_tail"] = dict(
         name="vposer_tail", route="cuda",
         source="mvsmplfitting_tpu_torch/csrc/vposer_tail.cu",
@@ -710,20 +752,19 @@ def main() -> int:
     batch = BatchedFitInputs(obs, torch.full((B_FIT,), 1080.0, device=dev))
     cfg = FitConfig(lm=LMOptions(max_iters=40))
     torch.cuda.synchronize()
-    JK.LAUNCHES = 0
-    VK.LAUNCHES = 0
+    reset_launches(JK, VK, SK)
     t0 = time.perf_counter()
     res = batched_fit_frames(cfg, assets, cam, batch, vposer_w=vw,
                              device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"joint_jacobian": JK.LAUNCHES,
-                "vposer_tail": VK.LAUNCHES}
+    launches = read_launches(JK, VK, SK)
     assert res.stage_losses.shape == (B_FIT, 4)
     assert res.body_pose.shape == (B_FIT, 69)
     assert bool(torch.isfinite(res.stage_losses).all()), "non-finite loss"
     lm_iters = int(res.lm_iters.amax(dim=0).sum().item())
-    for name, n in launches.items():
+    for name in ("joint_jacobian", "vposer_tail"):
+        n = launches[name]
         assert n >= lm_iters, f"{name}: {n} launches < {lm_iters} LM iters"
     losses_np = res.loss.cpu().numpy()
     assert len(np.unique(np.round(losses_np, 3))) > 1, \
@@ -733,17 +774,17 @@ def main() -> int:
         lm_iterations=lm_iters,
         final_loss_mean=f"{float(losses_np.mean()):.3f}",
         launches=json.dumps(launches).replace(" ", ""))
-    for name in kernels:
-        kernels[name]["launches"] = launches[name]
 
     # ---- 6-8. the collision slice ------------------------------------
     sdf_phase(dev, kernels)
     path = {}
     collide_phase(dev, path)
     multi_phase(dev, path)
-    for name in ("sdf_grid", "sdf_cross", "sdf_dist"):
-        kernels[name]["launches"] = (path["collide"][name]
-                                     + path["multi"][name])
+    # Every kernel's launches summed over the three fit paths.
+    path["fit"] = launches
+    for name in kernels:
+        kernels[name]["launches"] = sum(path[p].get(name, 0)
+                                        for p in ("fit", "collide", "multi"))
     # The brute force is the two-phase kernels' yardstick, not on a fit.
     assert kernels["sdf_grid"]["launches"] == 0, path
 

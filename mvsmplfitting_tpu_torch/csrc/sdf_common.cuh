@@ -26,6 +26,8 @@
 // CROSS_VOXEL_OPS for the bounds that chip_smoke.py computes.
 #pragma once
 
+#include "async_copy.cuh"
+
 constexpr int SDF_THREADS = 128;  // voxels per block, one per thread
 constexpr int SDF_CHUNK = 128;    // triangles staged per step (9 floats each)
 constexpr float SDF_FAR_D2 = 1e6f;
@@ -198,34 +200,6 @@ __device__ __forceinline__ int sdf_cross_voxel(const SdfCrossRow& r,
           tt >= 0.0f)
              ? 1
              : 0;
-}
-
-// Asynchronous 16-byte copy from device to shared memory (cp.async,
-// sm_80+), its commit and its wait.  Compiled for the host (the tests'
-// stand-in for the CUDA runtime) they are a plain copy and no-ops.
-__device__ __forceinline__ void sdf_copy16(void* smem, const void* gmem) {
-#ifdef __CUDA_ARCH__
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-#else
-  *static_cast<float4*>(smem) = *static_cast<const float4*>(gmem);
-#endif
-}
-
-__device__ __forceinline__ void sdf_copy_commit() {
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-#endif
-}
-
-// Wait until at most N of this thread's committed copy groups are pending.
-template <int N>
-__device__ __forceinline__ void sdf_copy_wait() {
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-#endif
 }
 
 // Stage triangles [f0, f0 + nf) of one mesh into shared memory, all

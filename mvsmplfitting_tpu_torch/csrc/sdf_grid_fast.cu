@@ -135,18 +135,18 @@ __global__ void __launch_bounds__(SDF_THREADS)
   // i is evaluated.  The barrier at the top of iteration i makes chunk i
   // visible and frees the buffer of chunk i - 1 for chunk i + 2.
   if (n > 0 && t < B4_A_VEC)
-    sdf_copy16(&s_tri[0][t], mesh + (long)s_list[0] * B4_A_VEC + t);
-  sdf_copy_commit();
+    async_copy16(&s_tri[0][t], mesh + (long)s_list[0] * B4_A_VEC + t);
+  async_commit();
   if (n > 1 && t < B4_A_VEC)
-    sdf_copy16(&s_tri[1][t], mesh + (long)s_list[1] * B4_A_VEC + t);
-  sdf_copy_commit();
+    async_copy16(&s_tri[1][t], mesh + (long)s_list[1] * B4_A_VEC + t);
+  async_commit();
   for (int i = 0; i < n; ++i) {
-    sdf_copy_wait<1>();
+    async_wait<1>();
     __syncthreads();
     if (i + 2 < n && t < B4_A_VEC)
-      sdf_copy16(&s_tri[(i + 2) % 3][t],
+      async_copy16(&s_tri[(i + 2) % 3][t],
                  mesh + (long)s_list[i + 2] * B4_A_VEC + t);
-    sdf_copy_commit();
+    async_commit();
     const float4* st = s_tri[i % 3];
 #pragma unroll 2
     for (int j = 0; j < B4_CHUNK; ++j) {
@@ -299,8 +299,8 @@ __global__ void __launch_bounds__(SDF_THREADS)
     int cur = sdf_take_nearest(lb, nc, lane, &cur_lb);
     if (cur_lb < worst * (1.0f + 1e-4f) + 1e-9f)
       for (int e = lane; e < B4_B_VEC; e += 32)
-        sdf_copy16(&s_tri[warp][0][e], mesh + (long)cur * B4_B_VEC + e);
-    sdf_copy_commit();
+        async_copy16(&s_tri[warp][0][e], mesh + (long)cur * B4_B_VEC + e);
+    async_commit();
     int nv = 0;
     while (cur_lb < worst * (1.0f + 1e-4f) + 1e-9f) {
       // The next chunk, copied now if it could still be visited (worst
@@ -309,10 +309,10 @@ __global__ void __launch_bounds__(SDF_THREADS)
       const int nxt = sdf_take_nearest(lb, nc, lane, &nxt_lb);
       if (nxt_lb < worst * (1.0f + 1e-4f) + 1e-9f)
         for (int e = lane; e < B4_B_VEC; e += 32)
-          sdf_copy16(&s_tri[warp][(nv + 1) & 1][e],
+          async_copy16(&s_tri[warp][(nv + 1) & 1][e],
                      mesh + (long)nxt * B4_B_VEC + e);
-      sdf_copy_commit();
-      sdf_copy_wait<1>();
+      async_commit();
+      async_wait<1>();
       __syncwarp();
       const float* st = reinterpret_cast<const float*>(s_tri[warp][nv & 1]);
 #pragma unroll 2
@@ -328,7 +328,7 @@ __global__ void __launch_bounds__(SDF_THREADS)
       cur = nxt;
       cur_lb = nxt_lb;
     }
-    sdf_copy_wait<0>();
+    async_wait<0>();
 #pragma unroll
     for (int o = 1; o < B4_SPLIT; o <<= 1)
       run_min = fminf(run_min, __shfl_xor_sync(FULL, run_min, o));

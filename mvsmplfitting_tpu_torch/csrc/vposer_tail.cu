@@ -5,23 +5,32 @@
 // (frame b, joint j): the 6D output o[b, 6j:6j+6] of the decoder MLP ->
 // rotation (Gram-Schmidt, 1e-12 floors) -> quaternion (Shepperd, 1e-6
 // pivot floor, first maximum wins) -> axis-angle (sign-folded atan2),
-// with the 6 forward-derivative columns of that same graph carried by a
-// dual number with 6 tangents, then composed with the MLP Jacobian:
+// with the 6 forward-derivative columns of that same graph, then
+// composed with the MLP Jacobian:
 //   aa[b, 3j+a]   = tail(o6)[a]
 //   D[b, 3j+a, Z] = sum_c Jt[c][a] * Do[b, 6j+c, Z].
 // The MLP matmuls before it stay in PyTorch.  atan2f replaces the
 // TPU kernel's minimax atan (Mosaic had no atan2).  A floor max(x, f)
 // takes half the tangent at an exact tie, as JAX's maximum does.
 //
-// Bound on the H100: bytes.  At B=512 it reads 9 MB of Do and writes
-// 4.5 MB of D; the tail itself is a few hundred flops per (b, j).
-// Design: a block owns FRAMES frames.  Phase 1 gives one thread to each
-// (frame, joint) tail and keeps its 18 derivative values in shared
-// memory; phase 2 walks the block's contiguous slice of D with
-// consecutive threads on consecutive Z, so every read of Do and every
-// write of D is coalesced.
+// Bound on the H100: bytes, 0.00418 ms at B=512: it reads 9.1 MB of o
+// and Do and writes 4.5 MB of aa and D; the tail itself is a few hundred
+// flops per (b, j).  The first design (4 frames per 128-thread block)
+// left ~1 block per SM with little in flight and started reading Do only
+// after the tails.  This design: one block per frame (512 blocks at
+// B=512, up to 10 per SM).  A block first issues cp.async 16-byte
+// copies of its frame's Do slab (138 x 32 floats, contiguous) into
+// shared memory, then computes the tails while they land: one thread per
+// (joint, tangent column), each carrying one tangent through the dual
+// numbers (the primal is recomputed by the 6 threads of a joint, which
+// take the same branches), so 138 threads work and few registers are
+// live.  Then it waits for the copies and composes D from shared memory
+// with float4 loads and 16-byte stores; consecutive threads write
+// consecutive 16 bytes of the frame's contiguous D slab.
 
 #include <cuda_runtime.h>
+
+#include "async_copy.cuh"
 
 namespace {
 
@@ -29,9 +38,10 @@ constexpr int NJ = 23;        // body joints
 constexpr int ROWS = 6 * NJ;  // 138 MLP outputs per frame
 constexpr int OUT = 3 * NJ;   // 69 axis-angle values per frame
 constexpr int Z = 32;         // latent size
-constexpr int FRAMES = 4;     // frames per block
-constexpr int THREADS = 128;
-constexpr int NT = 6;         // tangents carried
+constexpr int THREADS = 192;  // one frame per block
+constexpr int TAILS = 6 * NJ; // one thread per (joint, tangent column)
+constexpr int NT = 1;         // tangents carried per thread
+constexpr int Z4 = Z / 4;     // float4 per row of Do and D
 
 struct Dual {
   float v;
@@ -109,12 +119,12 @@ __device__ __forceinline__ Dual datan2(const Dual& y, const Dual& x) {
   return r;
 }
 
-// 6D (o0..o5) -> axis-angle aa[3], tangents with respect to o0..o5.
-__device__ void tail6(const float* o, Dual aa[3]) {
+// 6D (o0..o5) -> axis-angle aa[3], tangent with respect to o[tc].
+__device__ void tail(const float* o, int tc, Dual aa[3]) {
   Dual x[6];
   for (int c = 0; c < 6; ++c) {
     x[c] = constant(o[c]);
-    x[c].d[c] = 1.0f;
+    x[c].d[0] = (c == tc) ? 1.0f : 0.0f;
   }
   // reshape (3, 2): column a1 = (o0, o2, o4), a2 = (o1, o3, o5)
   const Dual a1[3] = {x[0], x[2], x[4]};
@@ -179,43 +189,53 @@ __device__ void tail6(const float* o, Dual aa[3]) {
 
 __global__ void __launch_bounds__(THREADS)
 vposer_tail_kernel(const float* __restrict__ o, const float* __restrict__ Do,
-                   int B, float* __restrict__ aa, float* __restrict__ D) {
-  __shared__ float s_J[FRAMES * NJ][NT * 3];  // Jt[c][a] at [c*3 + a]
-  const int b0 = blockIdx.x * FRAMES;
-  const int nb = min(FRAMES, B - b0);
+                   float* __restrict__ aa, float* __restrict__ D) {
+  __shared__ float4 s_Do[ROWS * Z4];       // this frame's Do slab
+  __shared__ float s_J[NJ][6 * 3];         // Jt[c][a] at [c*3 + a]
+  const int b = blockIdx.x;
   const int tid = threadIdx.x;
 
-  if (tid < nb * NJ) {
-    const int b = b0 + tid / NJ, j = tid % NJ;
+  const float* src = Do + (size_t)b * ROWS * Z;
+  for (int i = tid; i < ROWS * Z4; i += THREADS)
+    async_copy16(&s_Do[i], src + 4 * i);
+  async_commit();
+
+  if (tid < TAILS) {
+    const int j = tid / 6, col = tid % 6;
     Dual out[3];
-    tail6(o + (size_t)b * ROWS + 6 * j, out);
+    tail(o + (size_t)b * ROWS + 6 * j, col, out);
     for (int a = 0; a < 3; ++a) {
-      aa[(size_t)b * OUT + 3 * j + a] = out[a].v;
-      for (int c = 0; c < NT; ++c) s_J[tid][c * 3 + a] = out[a].d[c];
+      s_J[j][col * 3 + a] = out[a].d[0];
+      if (col == 0) aa[(size_t)b * OUT + 3 * j + a] = out[a].v;
     }
   }
+  async_wait<0>();
   __syncthreads();
 
-  const int per_frame = OUT * Z;
-  for (int e = tid; e < nb * per_frame; e += THREADS) {
-    const int bl = e / per_frame, rem = e % per_frame;
-    const int r = rem / Z, zc = rem % Z;
+  float4* dst = reinterpret_cast<float4*>(D + (size_t)b * OUT * Z);
+  for (int e = tid; e < OUT * Z4; e += THREADS) {
+    const int r = e / Z4, z4 = e % Z4;
     const int j = r / 3, a = r % 3;
-    const float* dcol = Do + ((size_t)(b0 + bl) * ROWS + 6 * j) * Z + zc;
-    const float* jt = s_J[bl * NJ + j];
-    float acc = 0.0f;
-    for (int c = 0; c < NT; ++c) acc = fmaf(jt[c * 3 + a], dcol[c * Z], acc);
-    D[(size_t)(b0 + bl) * per_frame + rem] = acc;
+    float4 acc = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int c = 0; c < 6; ++c) {
+      const float jt = s_J[j][c * 3 + a];
+      const float4 d = s_Do[(6 * j + c) * Z4 + z4];
+      acc.x = fmaf(jt, d.x, acc.x);
+      acc.y = fmaf(jt, d.y, acc.y);
+      acc.z = fmaf(jt, d.z, acc.z);
+      acc.w = fmaf(jt, d.w, acc.w);
+    }
+    dst[e] = acc;
   }
 }
 
 }  // namespace
 
+// Do and D must be 16-byte aligned (the wrapper checks).
 extern "C" int mvsf_vposer_tail(const float* o, const float* Do, int B,
                                 float* aa, float* D, void* stream) {
   if (B <= 0) return 0;
-  const int blocks = (B + FRAMES - 1) / FRAMES;
-  vposer_tail_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      o, Do, B, aa, D);
+  vposer_tail_kernel<<<B, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      o, Do, aa, D);
   return (int)cudaGetLastError();
 }

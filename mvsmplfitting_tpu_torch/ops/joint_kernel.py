@@ -9,7 +9,10 @@ launch the kernel (or raise); CPU tensors take the plain closed form.
 The kernel takes the per-model constants in plain row-major layouts
 (no TPU lane permutation), built once per `JointModel` and device.  The
 per-slot tables hold only the vertex slots: a chain slot's rows of the
-fold, H0, Hb and Hp are zero, and its joint comes from the chain.
+fold, H0, Hb and Hp are zero, and its joint comes from the chain.  Each
+vertex slot's beta table, fold slab and pose-corrective slab are
+contiguous, with rows of a multiple of 16 bytes, so a block streams them
+through shared memory with 16-byte copies.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ LAUNCHES = 0
 NUM_JOINTS = 24
 MAX_SLOTS = 24
 MAX_BETAS = 16
+HP_LD = 208          # the pose-corrective slab's row, 0-padded (16 bytes)
 
 
 def kernel_ok(jm: JointModel) -> bool:
@@ -46,17 +50,19 @@ class KernelTables:
     tables are indexed by vertex slot v = vslot[k]."""
 
     JBT: torch.Tensor         # (NB, 72) rest-joint shape basis transposed
-    foldT: torch.Tensor       # (NB + 207, Kv*72) vertex-slot fold rows, T
+    fold: torch.Tensor        # (Kv, NB + 207, 72) vertex-slot fold slabs
+    Hp: torch.Tensor          # (Kv, 72, 208): [v, j*3+b, (l-1)*9+q], 0-padded
+    Hb2: torch.Tensor         # (Kv, 72, NB): [v, j*3+b, bt], see kernel_tables
+
     j0: torch.Tensor          # (24, 3)
     H0: torch.Tensor          # (Kv, 24, 4)
-    HpT: torch.Tensor         # (Kv, 23, 9, 72): [v, l-1, q, j*3+b]
-    HbW: torch.Tensor         # (Kv, 24, 3, NB) = Hb - w JB
     u: torch.Tensor           # (Kv, 24) ancestry-summed skinning weights
     drel: torch.Tensor        # (24, 3, NB)
-    anc: torch.Tensor         # (24, 24)
     parents: torch.Tensor     # (24,) int32, root -1
+    desc: torch.Tensor        # (24,) int32, bit j set if l is j or an ancestor
     chain_idx: torch.Tensor   # (K,) int32
     vslot: torch.Tensor       # (K,) int32 vertex slot, -1 for a chain slot
+    kslot: torch.Tensor       # (Kv,) int32 slot k of each vertex slot
     K: int
     Kv: int
     NB: int
@@ -88,28 +94,40 @@ def kernel_tables(jm: JointModel, device: torch.device) -> KernelTables:
     vslot = torch.full((K,), -1, dtype=torch.int32)
     vslot[vs] = torch.arange(Kv, dtype=torch.int32)
     vs = vs.to(device)
-    anc = torch.as_tensor(_ancestry(jm.parents), **f32)
+    anc_np = _ancestry(jm.parents)
+    anc = torch.as_tensor(anc_np, **f32)
+    desc = (anc_np > 0).astype(np.int64) @ (1 << np.arange(J, dtype=np.int64))
     H0 = jm.H0.to(**f32)[vs]
     w = H0[..., 3]
     JB = jm.JB.to(**f32)
-    HpT = (jm.Hp.to(**f32)[vs].reshape(Kv, J, 3, J - 1, 9)
-           .permute(0, 3, 4, 1, 2).reshape(Kv, J - 1, 9, J * 3))
+    u = torch.einsum("lj,kj->kl", anc, w)
+    drel = rest_offset_basis(jm).to(**f32)
+    # Hb2[v, j] = Hb - w JB + sum of u_l drel_l over the children l of j:
+    # the rest offsets' beta terms ride on the parent's world rotation, so
+    # a vertex slot's beta block is W . Hb2 + u_0 drel_0.
+    child = torch.zeros((J, J), **f32)                        # [j, l]
+    for l in range(1, J):
+        child[jm.parents[l], l] = 1.0
+    Hb2 = (jm.Hb.to(**f32)[vs] - torch.einsum("kj,jbB->kjbB", w, JB)
+           + torch.einsum("jl,kl,lbB->kjbB", child, u, drel))
+    Hp = torch.zeros((Kv, J * 3, HP_LD), **f32)
+    Hp[..., :9 * (J - 1)] = jm.Hp.to(**f32)[vs].reshape(Kv, J * 3, -1)
     fold_v = jm.fold.to(**f32)[J * 3:].reshape(K, J * 3, -1)[vs]
     i32 = dict(dtype=torch.int32, device=device)
     tables = KernelTables(
         JBT=JB.reshape(J * 3, NB).T.contiguous(),
-        foldT=fold_v.reshape(Kv * J * 3, -1).T.contiguous(),
+        fold=fold_v.transpose(1, 2).contiguous(),
+        Hp=Hp,
+        Hb2=Hb2.reshape(Kv, J * 3, NB).contiguous(),
         j0=jm.j0.to(**f32).contiguous(),
         H0=H0.contiguous(),
-        HpT=HpT.contiguous(),
-        HbW=(jm.Hb.to(**f32)[vs]
-             - torch.einsum("kj,jbB->kjbB", w, JB)).contiguous(),
-        u=torch.einsum("lj,kj->kl", anc, w).contiguous(),
-        drel=rest_offset_basis(jm).to(**f32).contiguous(),
-        anc=anc.contiguous(),
+        u=u.contiguous(),
+        drel=drel.contiguous(),
         parents=torch.as_tensor(np.asarray(jm.parents), **i32),
+        desc=torch.as_tensor(desc, **i32),
         chain_idx=jm.chain_idx.to(**i32).contiguous(),
         vslot=vslot.to(device),
+        kslot=vs.to(**i32),
         K=K, Kv=Kv, NB=NB)
     jm.kernel_tables[key] = tables
     return tables
@@ -141,7 +159,7 @@ def joint_jacobian_plain(jm: JointModel, theta: torch.Tensor,
 def bind(lib: ctypes.CDLL):
     """The library's C entry point with its argument types declared."""
     fn = lib.mvsf_joint_jacobian
-    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p] * 5)
     fn.restype = ctypes.c_int
     return fn
@@ -158,7 +176,7 @@ def _check_input(name, t, shape):
 def joint_jacobian_cuda(jm: JointModel, theta: torch.Tensor,
                         betas: torch.Tensor, scale: torch.Tensor
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Launch `csrc/joint_jacobian.cu` (one block per frame)."""
+    """Launch `csrc/joint_jacobian.cu` (a block per 8 frames and slot)."""
     global LAUNCHES
     device = theta.device
     if device.type != "cuda" or betas.device != device \
@@ -189,11 +207,10 @@ def call(fn, tb: KernelTables, theta: torch.Tensor, betas: torch.Tensor,
     if B == 0:
         return _blocks(joints, dth, dbe, dsc)
     err = fn(theta.data_ptr(), betas.data_ptr(), scale.data_ptr(),
-             tb.JBT.data_ptr(), tb.foldT.data_ptr(), tb.j0.data_ptr(),
-             tb.H0.data_ptr(), tb.HpT.data_ptr(), tb.HbW.data_ptr(),
-             tb.u.data_ptr(), tb.drel.data_ptr(), tb.anc.data_ptr(),
-             tb.parents.data_ptr(), tb.chain_idx.data_ptr(),
-             tb.vslot.data_ptr(), B, K, tb.Kv, NB,
+             tb.JBT.data_ptr(), tb.fold.data_ptr(), tb.Hp.data_ptr(),
+             tb.Hb2.data_ptr(), tb.j0.data_ptr(), tb.H0.data_ptr(), tb.u.data_ptr(), tb.drel.data_ptr(), tb.parents.data_ptr(),
+             tb.desc.data_ptr(), tb.chain_idx.data_ptr(),
+             tb.vslot.data_ptr(), tb.kslot.data_ptr(), B, K, tb.Kv, NB,
              joints.data_ptr(), dth.data_ptr(), dbe.data_ptr(),
              dsc.data_ptr(), stream)
     cuda_build.check(err, "joint_jacobian kernel")

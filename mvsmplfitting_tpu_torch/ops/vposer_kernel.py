@@ -67,6 +67,9 @@ def call(fn, o: torch.Tensor, Do: torch.Tensor, stream
                 or tuple(t.shape) != shape:
             raise ValueError(f"{name}: need contiguous float32 {shape}, got "
                              f"{t.dtype} {tuple(t.shape)}")
+    if Do.data_ptr() % 16:
+        raise ValueError("Do: the kernel copies it in 16-byte pieces and "
+                         "needs it 16-byte aligned")
     aa = torch.empty((B, _OUT), dtype=torch.float32, device=device)
     D = torch.empty((B, _OUT, Z), dtype=torch.float32, device=device)
     if B == 0:

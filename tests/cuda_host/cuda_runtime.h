@@ -9,7 +9,12 @@
 // is a std::atomic_ref add.  Blocks run one after another (over
 // blockIdx.y, then x), so `__shared__` arrays become function statics.
 // The kernel launch `k<<<grid, block, smem, stream>>>(args)` is
-// rewritten by the test into `emu_launch(grid, block, [&] { k(args); })`.
+// rewritten by the test into `emu_launch(grid, block, smem, [&] {
+// k(args); })`, and a dynamic shared array `extern __shared__ T name[];`
+// into a pointer to `emu_dynamic_smem`, a buffer of `smem` bytes per
+// block filled with 0xff bytes (NaN as float), so that reading shared
+// memory no thread wrote shows in the results.
+// cudaFuncSetAttribute does nothing.
 // The sources' asynchronous copies (cp.async, behind __CUDA_ARCH__) run
 // here as plain copies, so only the card checks their synchronization.
 #pragma once
@@ -25,6 +30,7 @@
 #include <thread>
 #include <vector>
 
+using std::max;
 using std::min;
 #define __global__
 #define __device__
@@ -113,14 +119,25 @@ inline int atomicAdd(int* p, int v) {
 
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+template <class T>
+cudaError_t cudaFuncSetAttribute(T*, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
+
+inline void* emu_dynamic_smem = nullptr;
 
 template <class F>
-void emu_launch(dim3 grid, int block, F body) {
+void emu_launch(dim3 grid, int block, int smem_bytes, F body) {
+  std::vector<float4> dynamic_smem((smem_bytes + 15) / 16 + 1);
+  emu_dynamic_smem = dynamic_smem.data();
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx = 0; bx < grid.x; ++bx) {
       blockIdx.x = (int)bx;
       blockIdx.y = (int)by;
+      std::memset(dynamic_smem.data(), 0xff,
+                  dynamic_smem.size() * sizeof(float4));
       std::barrier<> block_barrier(block);
       emu_block_barrier = &block_barrier;
       std::vector<std::unique_ptr<emu_warp_state>> warps;

@@ -9,8 +9,9 @@ can be left out):
 
 Without a GPU every test skips.  Tolerances are the kernel ones: RTOL
 3e-5 / ATOL 1e-5 (fp32 reassociation); the VPoser D block at rtol 3e-4 /
-atol 3e-4 max|D|.  B=130 is not a multiple of the tail kernel's
-4-frame blocks, so the ragged last block is covered.  The SDF
+atol 3e-4 max|D|.  The joint-Jacobian and tail kernels run at B=1, 130
+(not a multiple of the joint kernel's 8-frame tiles, so its ragged last
+tile is covered) and 512 (the batched fit's batch).  The SDF
 voxelizers are compared bitwise (see `test_sdf_kernels_on_card`).
 """
 
@@ -39,12 +40,13 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 130, 512])
 @pytest.mark.parametrize("model_type", ["smpl", "smpllsp"])
-def test_joint_jacobian_kernel_on_card(cuda_device, model_type):
+def test_joint_jacobian_kernel_on_card(cuda_device, model_type, B):
     jm = port_assets(model_type).joint_model.to(cuda_device)
     theta, betas, scale = (torch.from_numpy(a).to(cuda_device)
                            for a in rand_joint_inputs(
-                               np.random.default_rng(4), 130))
+                               np.random.default_rng(4), B))
     before = JK.LAUNCHES
     gj, gb = JK.joint_jacobian_batched(jm, theta, betas, scale)
     torch.cuda.synchronize()
@@ -57,11 +59,12 @@ def test_joint_jacobian_kernel_on_card(cuda_device, model_type):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 130, 512])
 @pytest.mark.parametrize("sigma", [0.6, 1e-3])
-def test_vposer_tail_kernel_on_card(cuda_device, sigma):
+def test_vposer_tail_kernel_on_card(cuda_device, sigma, B):
     w = V.load_npz(VPOSER_NPZ, device=cuda_device)
     z = torch.from_numpy(np.random.default_rng(5).normal(
-        0, sigma, (130, 32)).astype(np.float32)).to(cuda_device)
+        0, sigma, (B, 32)).astype(np.float32)).to(cuda_device)
     before = VK.LAUNCHES
     aa1, D1 = VK.decode_jac_batched(w, z)
     torch.cuda.synchronize()

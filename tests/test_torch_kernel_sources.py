@@ -33,7 +33,8 @@ from torch_port_helpers import (icosphere, phase_b_walk, port_assets,
                                 posed_bodies, rand_joint_inputs, vposer_pair)
 
 STUB_DIR = os.path.join(os.path.dirname(__file__), "cuda_host")
-LAUNCH = re.compile(r"(\w+)<<<(.*?),(.*?),.*?>>>\((.*?)\);", re.S)
+LAUNCH = re.compile(r"(\w+)<<<(.*?),(.*?),(.*?),.*?>>>\((.*?)\);", re.S)
+DYNAMIC_SMEM = re.compile(r"extern __shared__ (\w+) (\w+)\[\];")
 
 
 @pytest.fixture(scope="module")
@@ -45,25 +46,43 @@ def host_libs(tmp_path_factory):
     libs = {}
     for name in cuda_build.KERNEL_SOURCES:
         src = (cuda_build.CSRC_DIR / f"{name}.cu").read_text()
-        src, n = LAUNCH.subn(r"emu_launch(\2, \3, [&] { \1(\4); });", src)
+        src, n = LAUNCH.subn(r"emu_launch(\2, \3, \4, [&] { \1(\5); });",
+                             src)
+        src = DYNAMIC_SMEM.sub(
+            r"\1* \2 = static_cast<\1*>(emu_dynamic_smem);", src)
         want = 2 if name == "sdf_grid_fast" else 1
         assert n == want, f"{name}: expected {want} kernel launches, found {n}"
         cpp = out_dir / f"{name}.cpp"
         cpp.write_text(src)
         so = out_dir / f"lib{name}.so"
-        subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC",
-                        "-pthread", "-I", STUB_DIR, "-I",
-                        str(cuda_build.CSRC_DIR), "-o", str(so), str(cpp)],
-                       check=True, timeout=300, capture_output=True)
+        done = subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC",
+                               "-pthread", "-I", STUB_DIR, "-I",
+                               str(cuda_build.CSRC_DIR), "-o", str(so),
+                               str(cpp)], timeout=300, capture_output=True,
+                              text=True)
+        assert done.returncode == 0, f"{name}: g++ failed\n{done.stderr}"
         libs[name] = ctypes.CDLL(str(so))
     return libs
 
 
+@pytest.fixture
+def nan_outputs(monkeypatch):
+    """The wrappers' outputs start as NaN, so an element the kernel does
+    not write fails the comparison."""
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: empty(*a, **k).fill_(
+        float("nan")))
+
+
+@pytest.mark.parametrize("B", [1, 11])
 @pytest.mark.parametrize("model_type", ["smpl", "smpllsp"])
-def test_joint_jacobian_source_on_host(host_libs, model_type):
+def test_joint_jacobian_source_on_host(host_libs, model_type, B,
+                                       nan_outputs):
+    """B=1 and B=11 (one 8-frame tile and a ragged one): padding frames
+    must not write, and every (tile, slot) block must."""
     jm = port_assets(model_type).joint_model
     theta, betas, scale = (torch.from_numpy(a) for a in rand_joint_inputs(
-        np.random.default_rng(7), 3))
+        np.random.default_rng(7), B))
     fn = JK.bind(host_libs["joint_jacobian"])
     gj, gb = JK.call(fn, JK.kernel_tables(jm, torch.device("cpu")), theta,
                      betas, scale, None)
@@ -74,11 +93,12 @@ def test_joint_jacobian_source_on_host(host_libs, model_type):
                                    msg=f"{model_type} block {k}")
 
 
+@pytest.mark.parametrize("B", [1, 5])
 @pytest.mark.parametrize("sigma", [0.6, 1e-3])
-def test_vposer_tail_source_on_host(host_libs, sigma):
+def test_vposer_tail_source_on_host(host_libs, sigma, B, nan_outputs):
     _, tw = vposer_pair()
     z = torch.from_numpy(np.random.default_rng(8).normal(
-        0, sigma, (5, 32)).astype(np.float32))
+        0, sigma, (B, 32)).astype(np.float32))
     o, Do = V.mlp_head(tw, z)
     o, Do = o.contiguous(), Do.contiguous()
     aa1, D1 = VK.call(VK.bind(host_libs["vposer_tail"]), o, Do, None)
@@ -86,6 +106,15 @@ def test_vposer_tail_source_on_host(host_libs, sigma):
     torch.testing.assert_close(aa1, aa0, rtol=3e-5, atol=1e-5)
     sc = max(D0.abs().max().item(), 1.0)
     torch.testing.assert_close(D1, D0, rtol=3e-4, atol=3e-4 * sc)
+
+
+def test_vposer_tail_call_refuses_misaligned_do():
+    """The tail kernel copies Do in 16-byte pieces: a view 4 bytes into
+    its storage is refused before the entry point is reached."""
+    o = torch.zeros((2, 138))
+    Do = torch.zeros(2 * 138 * 32 + 1)[1:].view(2, 138, 32)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        VK.call(None, o, Do, None)
 
 
 def _sdf_batches():
