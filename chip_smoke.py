@@ -49,14 +49,33 @@ Phases (each prints one line; any failure exits non-zero):
      seconds; then card-vs-CPU parity at G=16 (2 stages of 3 chol
      iterations at init_lambda 1.0, 1 lagged + 1 exact refinement
      iteration; losses at rtol 1e-2, sums at rtol 5e-2);
-then the card line, the kernels JSON line and the result line.  Each
-path's launch counters are set to 0 just before it and read just after;
-the JSON line gives every kernel's launches summed over [fit], [collide]
-and [multi].
+  9. [points] `fit_people` with the points engine at JAX's defaults (15
+     refinement iterations annealed over the collision stages, two
+     starts) on the same fixture under JAX's quality-test configuration
+     (library stage weights, max_iters=40), once with the forward-mode
+     refinement Jacobian and once with the analytic one: wall, field
+     evaluations with their host and event-timed seconds, per-person
+     losses and reprojection errors, collision sums before and after;
+     `tests/test_multi_person.py:244-271`'s bounds (sums to <= 5% of the
+     solo fits', mean px <= 3.25 and each <= 4.25; the just-clear pair
+     dx0=0.26 untouched: sums <= 1e-6, px <= 0.75); the field on the
+     card against the CPU on the refined bodies and against B4 at G=64
+     voxel centers (the same inside set, atol 1e-5, differing points
+     counted); a short points fit on the card against the CPU (losses
+     rtol 1e-2, sums 5e-2);
+ 10. [fused] the [fit] problem with `FitConfig.fused` (all stages in one
+     LM loop): frames/s and the share of frames whose final loss is
+     within rtol 0.1 of [fit]'s; an 8-frame fused fit (chol, classic)
+     on the card against the CPU, stage losses at rtol 1e-3;
+then the total seconds, the card line, the kernels JSON line and the
+result line.  Each path's launch counters are set to 0 just before it
+and read just after; the JSON line gives every kernel's launches summed
+over [fit], [collide], [multi], [points] (both runs) and [fused].
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -373,30 +392,34 @@ def log_sdf(SK, tri: torch.Tensor, G: int, work: dict, ms: dict,
         bounds_ms=json.dumps(bounds).replace(" ", ""))
 
 
-class VoxelizerClock:
-    """Event-timed device seconds inside `sdf_grid_fast_cuda` (tables and
-    both kernels), by wrapping it for the length of a `with` block."""
+class EventClock:
+    """Calls of `module.name` for the length of a `with` block: each one's
+    host seconds and CUDA event pair (their stream time includes the
+    device's waits for the host inside the call)."""
 
-    def __init__(self, SK):
-        self.SK = SK
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
         self.pairs = []
+        self.host_s = 0.0
 
     def __enter__(self):
-        inner = self.orig = self.SK.sdf_grid_fast_cuda
+        inner = self.orig = getattr(self.module, self.name)
 
         def timed(*a, **k):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
             start.record()
             out = inner(*a, **k)
             end.record()
+            self.host_s += time.perf_counter() - t0
             self.pairs.append((start, end))
             return out
-        self.SK.sdf_grid_fast_cuda = timed
+        setattr(self.module, self.name, timed)
         return self
 
     def __exit__(self, *exc):
-        self.SK.sdf_grid_fast_cuda = self.orig
+        setattr(self.module, self.name, self.orig)
 
     def seconds(self) -> float:
         torch.cuda.synchronize()
@@ -436,7 +459,7 @@ def collide_phase(dev, launches: dict) -> None:
     batch = BatchedFitInputs(obs, torch.full((B,), 1080.0, device=dev))
     torch.cuda.synchronize()
     reset_launches(JK, VK, SK)
-    with VoxelizerClock(SK) as clock:
+    with EventClock(SK, "sdf_grid_fast_cuda") as clock:
         t0 = time.perf_counter()
         res = batched_fit_frames(cfg, assets, cam, batch, vposer_w=vw,
                                  device=dev)
@@ -557,7 +580,7 @@ def multi_phase(dev, launches: dict) -> None:
     s_solo = sums_of(solo)
     torch.cuda.synchronize()
     reset_launches(JK, VK, SK)
-    with VoxelizerClock(SK) as clock:
+    with EventClock(SK, "sdf_grid_fast_cuda") as clock:
         t0 = time.perf_counter()
         res, s_ref = fit_people(cfg, assets, cam, obs, vposer_w=vw,
                                 sdf_engine="grid", device=dev)
@@ -604,6 +627,217 @@ def multi_phase(dev, launches: dict) -> None:
              / out["cpu"][1].abs()).max().item()
     log("multi", parity_people=2, grid=16, loss_max_rel=f"{rel_l:.3e}",
         sums_max_rel=f"{rel_s:.3e}", tolerance="losses rtol 1e-2, sums 5e-2")
+
+
+def _people_px(cfg, assets, cam, obs, vw, res) -> torch.Tensor:
+    """Each person's mean reprojection error in pixels."""
+    from mvsmplfitting_tpu_torch.fitting import energy as E
+    solo = dataclasses.replace(cfg.spec, interpenetration=False)
+    x = E.pack(solo, res.params, res.z)
+    return E.reprojection_error_px(solo, assets, cam, obs, vw, x)
+
+
+def _compact(t: torch.Tensor, nd: int = 4) -> str:
+    return json.dumps([round(v, nd) for v in t.tolist()]).replace(" ", "")
+
+
+def points_phase(dev, launches: dict) -> None:
+    """[points]: `fit_people` with the points engine at JAX's defaults
+    on the two-person fixture, with both refinement Jacobians."""
+    from mvsmplfitting_tpu_torch.fitting.energy import EnergySpec
+    from mvsmplfitting_tpu_torch.fitting.lm import LMOptions
+    from mvsmplfitting_tpu_torch.fitting.multi_person import fit_people
+    from mvsmplfitting_tpu_torch.fitting.stages import FitConfig
+    from mvsmplfitting_tpu_torch.models import vposer as V
+    from mvsmplfitting_tpu_torch.models.smpl import smpl_forward
+    from mvsmplfitting_tpu_torch.ops import joint_kernel as JK
+    from mvsmplfitting_tpu_torch.ops import sdf as S
+    from mvsmplfitting_tpu_torch.ops import sdf_kernel as SK
+    from mvsmplfitting_tpu_torch.ops import vposer_kernel as VK
+    from mvsmplfitting_tpu_torch.synthetic import make_people_problem
+
+    # The configuration of JAX's quality test (`tests/test_multi_person.
+    # py:244-256`): the library's 4-stage weights, 40 LM iterations.
+    cfg = FitConfig(spec=EnergySpec(interpenetration=True),
+                    lm=LMOptions(max_iters=40))
+    assets, vw, cam, obs = make_people_problem(0.2, device=dev)
+
+    def verts_of(r):
+        return smpl_forward(assets, r.params, V.decode(vw, r.z))[0]
+
+    solo, _ = fit_people(cfg, assets, cam, obs, vposer_w=vw,
+                         refine_collision=False, device=dev)
+    s_solo = S.collision_sums_points(verts_of(solo), assets.faces)
+    px_solo = _people_px(cfg, assets, cam, obs, vw, solo)
+    assert float(s_solo.sum()) > 0.1, s_solo            # the bodies overlap
+    refined = {}
+    for jac in ("ad", "analytic"):
+        torch.cuda.synchronize()
+        reset_launches(JK, VK, SK)
+        evals = S.FIELD_EVALS
+        with EventClock(S, "_sdf_at_points_impl") as clock:
+            t0 = time.perf_counter()
+            res, s_ref = fit_people(cfg, assets, cam, obs, vposer_w=vw,
+                                    points_jac=jac, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        evals = S.FIELD_EVALS - evals
+        got = read_launches(JK, VK, SK)
+        px = _people_px(cfg, assets, cam, obs, vw, res)
+        assert bool(torch.isfinite(res.loss).all()), "non-finite loss"
+        # `tests/test_multi_person.py:244-256`'s bounds.
+        assert float(s_ref.sum()) <= 0.05 * float(s_solo.sum()) + 1e-6, (
+            jac, s_solo, s_ref)
+        assert float(px.mean()) <= 3.25 and bool((px <= 4.25).all()), (
+            jac, px_solo, px)
+        assert got["joint_jacobian"] > 0 and got["vposer_tail"] > 0, got
+        launches[f"points_{jac}"] = got
+        refined[jac] = res
+        log("points", people=2, points_jac=jac, schedule="15 iters, anneal, "
+            "2 starts", wall_s=f"{wall:.3f}", field_evals=evals,
+            field_event_s=f"{clock.seconds():.3f}",
+            field_host_s=f"{clock.host_s:.3f}",
+            refine_lm_iterations=int(res.lm_iters[0, 0]),
+            per_person_loss=_compact(res.loss, 3), sums_solo=_compact(s_solo),
+            sums_refined=_compact(s_ref, 6), px_solo=_compact(px_solo),
+            px=_compact(px), launches=json.dumps(got).replace(" ", ""))
+
+    # The just-clear pair (true penetration 0) comes through untouched
+    # (`tests/test_multi_person.py:259-271`).
+    a, w, c, o = make_people_problem(0.26, device=dev)
+    t0 = time.perf_counter()
+    res, s = fit_people(cfg, a, c, o, vposer_w=w, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    px = _people_px(cfg, a, c, o, w, res)
+    assert float(s.sum()) <= 1e-6, s
+    assert bool((px <= 0.75).all()), px
+    log("points", clear_pair="dx0=0.26", wall_s=f"{wall:.3f}",
+        sums=_compact(s, 6), px=_compact(px))
+
+    # The field on the card against the CPU: each person's queries (the
+    # other's vertices) on the refined bodies.
+    verts = verts_of(refined["ad"])
+    centers, scales = S.box_frame(verts)
+    ndiff, err = 0, 0.0
+    for i in range(2):
+        mesh = (verts[i] - centers[i]) / scales[i]
+        q = (verts[1 - i] - centers[i]) / scales[i]
+        card = S._sdf_at_points_impl(q, mesh, assets.faces)
+        cpu = S._sdf_at_points_impl(q.cpu(), mesh.cpu(), assets.faces.cpu())
+        card = [t.cpu() for t in card]
+        assert torch.equal(card[2], cpu[2]), "inside sets differ"
+        err = max(err, (card[0] - cpu[0]).abs().max().item())
+        ndiff += int((card[0] != cpu[0]).sum())
+    assert err <= 1e-5, err
+    # The field at G=64 voxel centers against B4 on the card.  Inside the
+    # mesh's box both run the same arithmetic.  Outside it the field's
+    # cull gives 0 where the voxelizer's parity ray may graze an edge
+    # and count an odd number of crossings: such voxels must be inside
+    # by the field's full evaluation too.
+    local, _, faces = posed_local(dev, 2, seed=3)
+    G = G_CHECK
+    centers = S.voxel_centers(G, dev)
+    grid = SK.sdf_grid_fast(local[:1], faces, G).reshape(-1)
+    pts = S.sdf_at_points(centers, local[0], faces)
+    box = ((centers >= local[0].amin(0) - 1e-6)
+           & (centers <= local[0].amax(0) + 1e-6)).all(-1)
+    differ = (pts > 0) != (grid > 0)
+    outside = torch.nonzero(differ & ~box).flatten()
+    full = S._sdf_at_points_impl(centers[outside], local[0], faces,
+                                 _full=True)[0]
+    err_b4 = (pts - grid)[box].abs().max().item()
+    ms = event_ms(lambda: S.sdf_at_points(centers, local[0], faces))
+    log("points", field_card_vs_cpu="refined bodies", max_abs=f"{err:.3e}",
+        points_not_bitwise=ndiff, field_vs_b4=f"G={G}",
+        b4_max_abs_in_box=f"{err_b4:.3e}",
+        voxels_not_bitwise=int((pts != grid).sum()),
+        inside_voxels=int((grid > 0).sum()),
+        inside_sets_differ_in_box=int((differ & box).sum()),
+        b4_inside_outside_box=outside.numel(),
+        b4_phi_there=_compact(grid[outside][:8], 5), field_G64_ms=f"{ms:.2f}",
+        tolerance="same inside set in the box, atol 1e-5")
+    assert not (differ & box).any(), "field vs B4: inside sets differ"
+    assert err_b4 <= 1e-5, err_b4
+    assert torch.equal(full, grid[outside]), (full, grid[outside])
+
+    # A short points fit on both devices (the CPU test's budget).
+    short = FitConfig(spec=EnergySpec(interpenetration=True),
+                      pose_weights=(404.0,), shape_weights=(100.0,),
+                      coll_weights=(1000.0,),
+                      lm=LMOptions(max_iters=3, linsolve="chol",
+                                   speculative=False, init_lambda=1.0))
+    out = {}
+    for name in ("cuda", "cpu"):
+        d = dev if name == "cuda" else "cpu"
+        a, w, c, o = make_people_problem(0.2, device=d)
+        r, s = fit_people(short, a, c, o, vposer_w=w, points_iters=2,
+                          device=d)
+        out[name] = (r.loss.cpu(), s.cpu())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-2,
+                               atol=0.0)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=5e-2,
+                               atol=0.0)
+    rel_l = ((out["cuda"][0] - out["cpu"][0]).abs()
+             / out["cpu"][0].abs()).max().item()
+    rel_s = ((out["cuda"][1] - out["cpu"][1]).abs()
+             / out["cpu"][1].abs()).max().item()
+    log("points", parity_people=2, loss_max_rel=f"{rel_l:.3e}",
+        sums_max_rel=f"{rel_s:.3e}", tolerance="losses rtol 1e-2, sums 5e-2")
+
+
+def fused_phase(dev, launches: dict, fit_loss: torch.Tensor) -> None:
+    """[fused]: the [fit] problem with `FitConfig.fused`, then an 8-frame
+    fused fit on the card against the CPU."""
+    from mvsmplfitting_tpu_torch.fitting.lm import LMOptions
+    from mvsmplfitting_tpu_torch.fitting.stages import FitConfig
+    from mvsmplfitting_tpu_torch.ops import joint_kernel as JK
+    from mvsmplfitting_tpu_torch.ops import sdf_kernel as SK
+    from mvsmplfitting_tpu_torch.ops import vposer_kernel as VK
+    from mvsmplfitting_tpu_torch.parallel.batched import (
+        BatchedFitInputs, batched_fit_frames)
+    from mvsmplfitting_tpu_torch.synthetic import make_problem
+
+    assets, vw, cam, obs = make_problem(6, B_FIT, seed=0, device=dev)
+    batch = BatchedFitInputs(obs, torch.full((B_FIT,), 1080.0, device=dev))
+    cfg = FitConfig(lm=LMOptions(max_iters=40), fused=True)
+    torch.cuda.synchronize()
+    reset_launches(JK, VK, SK)
+    t0 = time.perf_counter()
+    res = batched_fit_frames(cfg, assets, cam, batch, vposer_w=vw,
+                             device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_launches(JK, VK, SK)
+    assert res.stage_losses.shape == (B_FIT, 4)
+    assert bool(torch.isfinite(res.stage_losses).all()), "non-finite loss"
+    assert got["joint_jacobian"] > 0 and got["vposer_tail"] > 0, got
+    launches["fused"] = got
+    near = torch.isclose(res.loss, fit_loss, rtol=0.1, atol=0.0)
+    log("fused", frames=B_FIT, fps=f"{B_FIT / wall:.1f}",
+        wall_s=f"{wall:.3f}",
+        lm_iterations=int(res.lm_iters.sum(1).amax().item()),
+        final_loss_mean=f"{res.loss.mean().item():.3f}",
+        share_within_rtol_0_1_of_fit=f"{near.double().mean().item():.4f}",
+        launches=json.dumps(got).replace(" ", ""))
+
+    short = FitConfig(lm=LMOptions(max_iters=3, linsolve="chol",
+                                   speculative=False), fused=True)
+    losses = {}
+    for name in ("cuda", "cpu"):
+        d = dev if name == "cuda" else "cpu"
+        a, w, c, o = make_problem(6, 8, seed=1, device=d)
+        r = batched_fit_frames(short, a, c,
+                               BatchedFitInputs(o, torch.full((8,), 1080.0,
+                                                              device=d)),
+                               vposer_w=w, device=d)
+        losses[name] = r.stage_losses.cpu()
+    torch.testing.assert_close(losses["cuda"], losses["cpu"], rtol=1e-3,
+                               atol=0.0)
+    rel = ((losses["cuda"] - losses["cpu"]).abs()
+           / losses["cpu"].abs()).max().item()
+    log("fused", parity_frames=8, stage_losses_max_rel=f"{rel:.3e}",
+        tolerance="rtol 1e-3")
 
 
 def main() -> int:
@@ -775,16 +1009,16 @@ def main() -> int:
         final_loss_mean=f"{float(losses_np.mean()):.3f}",
         launches=json.dumps(launches).replace(" ", ""))
 
-    # ---- 6-8. the collision slice ------------------------------------
+    # ---- 6-10. the collision slice, the points engine, the fused loop --
     sdf_phase(dev, kernels)
-    path = {}
+    path = {"fit": launches}
     collide_phase(dev, path)
     multi_phase(dev, path)
-    # Every kernel's launches summed over the three fit paths.
-    path["fit"] = launches
+    points_phase(dev, path)
+    fused_phase(dev, path, res.loss)
+    # Every kernel's launches summed over the fit paths.
     for name in kernels:
-        kernels[name]["launches"] = sum(path[p].get(name, 0)
-                                        for p in ("fit", "collide", "multi"))
+        kernels[name]["launches"] = sum(p.get(name, 0) for p in path.values())
     # The brute force is the two-phase kernels' yardstick, not on a fit.
     assert kernels["sdf_grid"]["launches"] == 0, path
 

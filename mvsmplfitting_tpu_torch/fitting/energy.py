@@ -54,7 +54,9 @@ class Observations:
 @dataclasses.dataclass
 class StageWeights:
     """Annealing-stage loss weights (`non_linear_solver.py:103-121`).
-    `data` is per frame (B,) (500 / image height); the rest are scalars."""
+    `data` is per frame (B,) (500 / image height); the rest are scalars,
+    or per frame (B,) where frames sit at different stages (the fused
+    loop, `lm.lm_fit_staged`)."""
 
     data: torch.Tensor
     pose: torch.Tensor
@@ -234,7 +236,8 @@ def energy_terms(spec: EnergySpec, assets: SMPLAssets, cam: Camera,
     coll = zero
     if _coll_on(spec, weights):
         coll = sdf_ops.collision_energy(verts[:, None], assets.faces,
-                                        weights.coll, spec.coll_grid_size)
+                                        _col(weights.coll, 1),
+                                        spec.coll_grid_size)
 
     return {"joint": joint_loss, "joint3d": zero, "pose_prior": pprior,
             "shape_prior": shape_loss, "angle_prior": angle,
@@ -265,15 +268,16 @@ def _prior_rows_core(spec: EnergySpec, weights: StageWeights,
                      betas: torch.Tensor) -> torch.Tensor:
     """Prior rows (B, r) as a function of (z, body_pose, betas)."""
     rows = []
+    pose = _col(weights.pose, 1)
     if spec.use_vposer:
-        rows.append(weights.pose * z)
+        rows.append(pose * z)
     else:
-        rows.append(weights.pose * body_pose)
-        rows.append(4.0 * weights.pose * body_pose)
+        rows.append(pose * body_pose)
+        rows.append(4.0 * pose * body_pose)
     if not spec.fix_shape:
-        rows.append(weights.shape * betas)
+        rows.append(_col(weights.shape, 1) * betas)
     terms = angle_prior_terms(body_pose)
-    angle_rows = torch.sqrt(weights.bending) * torch.sqrt(terms)
+    angle_rows = torch.sqrt(_col(weights.bending, 1)) * torch.sqrt(terms)
     if not spec.use_vposer:
         # Gate (`fitting.py:349-350`): the term is dropped above 1e4; the
         # gate itself carries no derivative.
@@ -306,8 +310,20 @@ def residuals(spec: EnergySpec, assets: SMPLAssets, cam: Camera,
             grids = sdf_ops.person_grids(verts[:, None], assets.faces,
                                          spec.coll_grid_size)
         s = sdf_ops.sampled_at_live_frame(grids[0], verts[:, None])
-        rows.append(weights.coll * s / s.shape[-1])
+        rows.append(_col(weights.coll, 1) * s / s.shape[-1])
     return torch.cat(rows, dim=-1)
+
+
+def reprojection_error_px(spec: EnergySpec, assets: SMPLAssets, cam: Camera,
+                          obs: Observations,
+                          vposer_w: Optional[vposer_lib.VPoserWeights],
+                          x: torch.Tensor) -> torch.Tensor:
+    """(B,) confidence-weighted mean 2D reprojection error in pixels."""
+    joints = _forward(spec, assets, vposer_w, x)[4]
+    err = torch.linalg.norm(obs.gt2d - _project(cam, joints), dim=-1)
+    w = _data_weights(spec, obs)
+    return (torch.sum(w * err, dim=(1, 2))
+            / torch.clamp_min(torch.sum(w, dim=(1, 2)), 1e-9))
 
 
 def analytic_jac_ok(spec: EnergySpec, assets: SMPLAssets) -> bool:

@@ -1,5 +1,6 @@
 """Levenberg-Marquardt over the least-squares energy, batched over frames
-(port of `fitting/lm.py`: `lm_fit` classic and speculative).
+(port of `fitting/lm.py`: `lm_fit` classic and speculative, and the
+fused all-stages loop `lm_fit_staged`).
 
 JAX runs one `lax.while_loop` per frame under `vmap`: the body runs for
 every frame and a frame whose condition ``it < max_iters & ~done`` is
@@ -22,7 +23,7 @@ only (the multi-person refinement, its one user, is never speculative).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -246,3 +247,113 @@ def _lm_fit_speculative(residual_fn, r_and_J, x0, mask, opts: LMOptions):
     better = torch.isfinite(f_fin) & (f_fin <= f_prev)
     return (torch.where(better[:, None], x, x_prev),
             torch.where(better, f_fin, f_prev), it)
+
+
+def stack_stages(stages: Sequence[Any]) -> Any:
+    """Per-stage weights (dataclasses of tensors with one Python flag,
+    `coll_on`, that must agree) stacked on a leading stage axis."""
+    first = stages[0]
+    fields = {}
+    for f in dataclasses.fields(first):
+        vals = [getattr(st, f.name) for st in stages]
+        if isinstance(vals[0], torch.Tensor):
+            fields[f.name] = torch.stack(vals)
+        else:
+            if len(set(vals)) != 1:
+                raise ValueError(f"stages disagree on {f.name}: {vals}")
+            fields[f.name] = vals[0]
+    return dataclasses.replace(first, **fields)
+
+
+def _stage_at(table: Any, stage: torch.Tensor) -> Any:
+    """Each frame's weights at its stage (B,): a field stacked (S, B) per
+    frame gives (B,) by frame, one stacked (S,) gives (B,) too."""
+    B = stage.shape[0]
+    rows = torch.arange(B, device=stage.device)
+    fields = {}
+    for f in dataclasses.fields(table):
+        v = getattr(table, f.name)
+        if isinstance(v, torch.Tensor):
+            fields[f.name] = v[stage, rows] if v.dim() == 2 else v[stage]
+    return dataclasses.replace(table, **fields)
+
+
+def lm_fit_staged(residual_fn: Callable[[torch.Tensor, Any], torch.Tensor],
+                  x0: torch.Tensor, mask: torch.Tensor, weights_table: Any,
+                  num_stages: int, opts: LMOptions = LMOptions(),
+                  jac_fn: Optional[Callable[[torch.Tensor, Any],
+                                            Tuple[torch.Tensor,
+                                                  torch.Tensor]]] = None,
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """All annealing stages in one loop (JAX `lm.py:313-401`), batched.
+
+    Each frame carries its stage index, its iteration count within the
+    stage and its lambda; every iteration gathers each frame's weights
+    from `weights_table` (`stack_stages` of the stages) at its stage, so
+    frames at different stages share one batch.  A step is accepted when
+    the new loss is below sum(r^2) of the primal residual of this
+    iteration's Jacobian; a stage ends on a small relative improvement
+    of an accepted step, a small gradient, its iteration budget or a
+    non-finite trial loss, and lambda restarts at `init_lambda`.  The
+    loop runs until every frame has passed the last stage.
+
+    Args:
+      residual_fn: (x (B, n), weights) -> r (B, m), weights per frame.
+      jac_fn: optional (x, weights) -> (r, J (B, m, n)); else forward-mode
+        AD of residual_fn.
+
+    Returns:
+      (x_final (B, n), per-stage final losses (B, S), LM iterations per
+      stage (B, S)).
+    """
+    B = x0.shape[0]
+    device, dtype = x0.device, x0.dtype
+    S = num_stages
+    x = x0
+    lam = torch.full((B,), opts.init_lambda, dtype=dtype, device=device)
+    it = torch.zeros((B,), dtype=torch.int32, device=device)
+    stage = torch.zeros((B,), dtype=torch.int64, device=device)
+    stage_losses = torch.full((B, S), float("inf"), dtype=dtype,
+                              device=device)
+    iters = torch.zeros((B, S), dtype=torch.int32, device=device)
+    rows = torch.arange(B, device=device)
+
+    while True:
+        active = stage < S
+        if not bool(active.any()):
+            break
+        at = torch.clamp_max(stage, S - 1)
+        w = _stage_at(weights_table, at)
+        if jac_fn is not None:
+            r, J = jac_fn(x, w)
+        else:
+            r, J = ad_jacobian(lambda v: residual_fn(v, w), x)
+        J = J * mask
+        loss_old = torch.sum(r * r, dim=-1)
+        g, dx = _normal_step(r, J, lam, mask, opts)
+        new_x = x + dx
+        r_new = residual_fn(new_x, w)
+        new_loss = torch.sum(r_new * r_new, dim=-1)
+        accept = torch.isfinite(new_loss) & (new_loss < loss_old)
+
+        step_lam = torch.clamp(
+            torch.where(accept, lam * opts.lambda_down, lam * opts.lambda_up),
+            opts.min_lambda, opts.max_lambda)
+        rel = torch.abs(loss_old - new_loss) / torch.clamp_min(
+            torch.maximum(torch.abs(loss_old), torch.abs(new_loss)), 1.0)
+        cur_loss = torch.where(accept, new_loss, loss_old)
+        stage_done = ((accept & (rel <= opts.ftol))
+                      | (torch.amax(torch.abs(g), dim=-1) < opts.gtol)
+                      | (it + 1 >= opts.max_iters)
+                      | ~torch.isfinite(new_loss))
+
+        x = torch.where((active & accept)[:, None], new_x, x)
+        stage_losses[rows, at] = torch.where(active, cur_loss,
+                                             stage_losses[rows, at])
+        iters[rows, at] += active.to(iters.dtype)
+        lam = torch.where(active, torch.where(
+            stage_done, torch.full_like(lam, opts.init_lambda), step_lam),
+            lam)
+        it = torch.where(active, torch.where(stage_done, 0, it + 1), it)
+        stage = stage + (active & stage_done).to(stage.dtype)
+    return x, stage_losses, iters

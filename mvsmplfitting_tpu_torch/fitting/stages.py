@@ -2,9 +2,10 @@
 `fitting/stages.py` for ``solver="lm"``).
 
 The reference's 4 weight stages (`cfg_files/fit_smpl.yaml:40-59`) run in
-order on the same parameter vector; each is one batched `lm_fit`.  Not
-ported yet: the L-BFGS and gradient solvers, the fused one-loop form
-(`lm_fit_staged`) and the sequence schedule.
+order on the same parameter vector; each is one batched `lm_fit`, or,
+with `FitConfig.fused`, all of them run in one loop (`lm_fit_staged`)
+where each frame moves to the next stage on its own.  Not ported yet:
+the L-BFGS and gradient solvers and the sequence schedule.
 
 A stage with the collision term on takes the AD Jacobian, as in JAX
 (`stages.py:116-117`).  The voxelizer is a ctypes kernel on the card and
@@ -27,7 +28,7 @@ from ..models.smpl import SMPLAssets, SMPLParams
 from ..models.vposer import VPoserWeights
 from . import energy as E
 from .energy import EnergySpec, Observations, StageWeights
-from .lm import LMOptions, ad_jacobian, lm_fit
+from .lm import LMOptions, ad_jacobian, lm_fit, lm_fit_staged, stack_stages
 
 # Demo schedule: per-stage (body_pose_weight, shape_weight,
 # coll_loss_weight); data weight 500 / image_height for every stage and
@@ -45,6 +46,11 @@ class FitConfig:
     shape_weights: Tuple[float, ...] = DEFAULT_SHAPE_WEIGHTS
     coll_weights: Tuple[float, ...] = DEFAULT_COLL_WEIGHTS
     lm: LMOptions = LMOptions()
+    # All stages in one LM loop (`lm_fit_staged`); the same math as the
+    # stage-by-stage loops (JAX `stages.py:66-71`).  Off by default, as
+    # in JAX; it falls back to the stage loops where stages mix collision
+    # on and off.
+    fused: bool = False
 
 
 @dataclasses.dataclass
@@ -113,6 +119,33 @@ def run_stage(cfg: FitConfig, assets: SMPLAssets, cam: Camera,
     return x_new, loss, iters
 
 
+def _fit_fused(cfg: FitConfig, assets: SMPLAssets, cam: Camera,
+               obs: Observations, stages: Sequence[StageWeights],
+               vposer_w: Optional[VPoserWeights], gmm, x: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """All stages in one `lm_fit_staged` loop (JAX `stages.py:171-185`);
+    returns (x, stage losses (B, S), LM iterations (B, S)).  Each stage's
+    Jacobian is `stage_jacobian`'s at the frame's weights: closed form
+    only when no stage has the collision term on."""
+    spec = cfg.spec
+
+    def res(xv, w):
+        return E.residuals(spec, assets, cam, obs, w, vposer_w, gmm, xv)
+
+    def jac_fn(xv, w):
+        f = stage_jacobian(cfg, assets, cam, obs, w, vposer_w, gmm)
+        return f(xv) if f is not None else ad_jacobian(
+            lambda v: res(v, w), xv)
+
+    x, losses, iters = lm_fit_staged(res, x, E.free_mask(spec, x.device),
+                                     stack_stages(stages), len(stages),
+                                     cfg.lm, jac_fn=jac_fn)
+    # The last stage reports the scalar energy, as the stage loops do.
+    losses[:, -1] = E.total_energy(spec, assets, cam, obs, stages[-1],
+                                   vposer_w, gmm, x)
+    return x, losses, iters
+
+
 def fit_frame(cfg: FitConfig, assets: SMPLAssets, cam: Camera,
               obs: Observations, init_params: SMPLParams,
               init_z: torch.Tensor,
@@ -125,13 +158,27 @@ def fit_frame(cfg: FitConfig, assets: SMPLAssets, cam: Camera,
     h = torch.as_tensor(img_height, dtype=torch.float32, device=x.device)
     h = h.expand(B) if h.dim() == 0 else h
 
-    losses: List[torch.Tensor] = []
-    iters: List[torch.Tensor] = []
-    for weights in default_stages(cfg, h):
-        x, loss, it = run_stage(cfg, assets, cam, obs, weights, vposer_w,
-                                gmm, x)
-        losses.append(loss)
-        iters.append(it)
+    stages = default_stages(cfg, h)
+    # With the collision term off, coll_on is dead and must not block
+    # fusing (JAX `stages.py:161-170`).
+    use_fused = (cfg.fused and cfg.solver == "lm"
+                 and (not spec.interpenetration
+                      or len({w.coll_on for w in stages}) == 1))
+    if use_fused:
+        if not spec.interpenetration:
+            stages = [dataclasses.replace(w, coll_on=False) for w in stages]
+        x, stage_losses, lm_iters = _fit_fused(cfg, assets, cam, obs, stages,
+                                               vposer_w, gmm, x)
+    else:
+        losses: List[torch.Tensor] = []
+        iters: List[torch.Tensor] = []
+        for weights in stages:
+            x, loss, it = run_stage(cfg, assets, cam, obs, weights, vposer_w,
+                                    gmm, x)
+            losses.append(loss)
+            iters.append(it)
+        stage_losses = torch.stack(losses, 1)
+        lm_iters = torch.stack(iters, 1)
 
     params, z = E.unpack(spec, x)
     if spec.use_vposer:
@@ -141,5 +188,5 @@ def fit_frame(cfg: FitConfig, assets: SMPLAssets, cam: Camera,
         body_pose = params.body_pose
         z = torch.zeros((B, E.LATENT_DIM), dtype=x.dtype, device=x.device)
     return FitResult(params=params, z=z, body_pose=body_pose,
-                     loss=losses[-1], stage_losses=torch.stack(losses, 1),
-                     lm_iters=torch.stack(iters, 1))
+                     loss=stage_losses[:, -1], stage_losses=stage_losses,
+                     lm_iters=lm_iters)

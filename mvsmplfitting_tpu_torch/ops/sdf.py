@@ -22,6 +22,10 @@ person's grid, and phi carries no derivative; the live box frame does.
 Voxelizing launches a CUDA kernel for CUDA tensors, so callers voxelize
 on plain tensors and only the sampling runs inside `torch.func`
 transforms (see `fitting/stages.py`).
+
+The points engine (`sdf_at_points`, `collision_sums_points`) evaluates
+the same field exactly at the query points, with the same pair
+arithmetic, in plain PyTorch: JAX has no Pallas kernel there either.
 """
 
 from __future__ import annotations
@@ -215,6 +219,12 @@ def triangles(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
     return tri.reshape(tri.shape[:-2] + (9,)).float().contiguous()
 
 
+def _pair_budget(t: torch.Tensor, cpu: int = 1 << 20) -> int:
+    """(point, face) pairs per step: 2^24 on a GPU, `cpu` on the CPU,
+    where smaller temporaries stay in cache."""
+    return 1 << 24 if t.is_cuda else cpu
+
+
 def sdf_grid(verts: torch.Tensor, faces: torch.Tensor,
              grid_size: int = 32) -> torch.Tensor:
     """phi (..., G, G, G) indexed [z, y, x]: the plain PyTorch voxelizer.
@@ -232,8 +242,7 @@ def sdf_grid(verts: torch.Tensor, faces: torch.Tensor,
     lead = verts.shape[:-2]
     tri = triangles(verts.reshape((-1,) + verts.shape[-2:]), faces)
     centers = voxel_centers(G, tri.device)
-    pair_budget = 1 << (24 if tri.is_cuda else 20)
-    vchunk = max(1, pair_budget // FACE_CHUNK)
+    vchunk = max(1, _pair_budget(tri) // FACE_CHUNK)
     out = torch.zeros((tri.shape[0], centers.shape[0]), dtype=torch.float32,
                       device=tri.device)
 
@@ -264,6 +273,178 @@ def sdf_grid(verts: torch.Tensor, faces: torch.Tensor,
                     run_min, _pair_dist_sq(*comps, px, py, pz).amin(dim=1))
             out[m, idx] = _sqrt(run_min)
     return out.reshape(lead + (G, G, G))
+
+
+# ---------------------------------------------------------------------------
+# Gridless point evaluation (the G -> infinity limit of the field).
+# ---------------------------------------------------------------------------
+
+# Faces per chunk of the point field, padded with triangles at 1e6.
+POINT_FACE_CHUNK = 512
+# Evaluations of the point field (`_sdf_at_points_impl` calls).
+FIELD_EVALS = 0
+
+
+def _face_chunks(verts: torch.Tensor, faces: torch.Tensor,
+                 face_chunk: int = POINT_FACE_CHUNK) -> torch.Tensor:
+    """(V, 3) vertices -> (F/C, C, 9) float32 triangle chunks, the last
+    one padded with degenerate triangles at 1e6 (no crossing, never the
+    nearest)."""
+    tri = triangles(verts, faces)                      # (F, 9)
+    pad = (-tri.shape[0]) % face_chunk
+    if pad:
+        tri = torch.cat([tri, tri.new_full((pad, 9), 1e6)])
+    return tri.reshape(-1, face_chunk, 9)
+
+
+def _steps(points: torch.Tensor, chunks: torch.Tensor):
+    """Yield (point slice, triangles (k*C, 9)) steps of at most the pair
+    budget: points in blocks of budget / C, and within a block as many
+    whole chunks as the budget allows."""
+    nc, C = chunks.shape[:2]
+    budget = _pair_budget(points, cpu=1 << 18)    # the fastest on the CPU
+    q = max(1, budget // C)
+    for n0 in range(0, points.shape[0], q):
+        block = slice(n0, min(n0 + q, points.shape[0]))
+        k = max(1, budget // (C * (block.stop - n0)))
+        for c0 in range(0, nc, k):
+            yield block, chunks[c0:c0 + k].reshape(-1, 9)
+
+
+def _comps(tri: torch.Tensor):
+    """(T, 9) triangles -> nine (1, T) coordinate rows."""
+    return [tri[:, i][None] for i in range(9)]
+
+
+def _parity_scan(points: torch.Tensor, chunks: torch.Tensor) -> torch.Tensor:
+    """(N,) int32 crossing counts of the rays from points toward the
+    corner (-1, -1, -1) over all faces."""
+    count = torch.zeros((points.shape[0],), dtype=torch.int32,
+                        device=points.device)
+    for block, tri in _steps(points, chunks):
+        px, py, pz = (points[block, i:i + 1] for i in range(3))
+        count[block] += _pair_crossing(*_comps(tri), px, py, pz, -1.0 - px,
+                                       -1.0 - py, -1.0 - pz).sum(
+                                           dim=1, dtype=torch.int32)
+    return count
+
+
+def _dist_closest_scan(points: torch.Tensor, chunks: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(min d^2 (N,), closest surface point (N, 3)): the running minimum
+    from 1e6 and closest from zeros; each step takes its first minimum
+    face, recomputes the closest point on that face alone, and updates
+    where its minimum is strictly lower.  A step spans whole 512-face
+    chunks, and the first minimum over a step equals the per-chunk first
+    minima merged by strict <, so the result is JAX's chunk scan's."""
+    N = points.shape[0]
+    min_d2 = torch.full((N,), FAR_D2, dtype=torch.float32,
+                        device=points.device)
+    closest = torch.zeros((N, 3), dtype=torch.float32, device=points.device)
+    for block, tri in _steps(points, chunks):
+        p = points[block]
+        d2 = _pair_dist_sq(*_comps(tri), p[:, 0:1], p[:, 1:2], p[:, 2:3])
+        j = torch.argmin(d2, dim=1)
+        step_min = d2.amin(dim=1)
+        best = tri[j]                                      # (n, 9)
+        cl, _ = point_triangle_closest(p, best[:, 0:3], best[:, 3:6],
+                                       best[:, 6:9])
+        upd = step_min < min_d2[block]
+        min_d2[block] = torch.where(upd, step_min, min_d2[block])
+        closest[block] = torch.where(upd[:, None], cl, closest[block])
+    return min_d2, closest
+
+
+def _sdf_at_points_impl(points: torch.Tensor, verts: torch.Tensor,
+                        faces: torch.Tensor, _full: bool = False
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(phi (N,), closest (N, 3), inside (N,)) at query points (N, 3) for
+    one mesh verts (V, 3), faces (F, 3): the field of `sdf_grid` at
+    arbitrary points (distance inside, 0 outside, parity of the ray
+    toward (-1, -1, -1)).
+
+    Two culls, as JAX's tiers (`ops/sdf.py:318-380`) but compacted by
+    `nonzero`: the parity runs only on the points inside the mesh's box
+    (grown by 1e-6; a point outside it is outside the mesh), and the
+    distance only on the inside points.  Outside points get phi = 0 and
+    closest = 0.  Each point's arithmetic does not depend on which other
+    points are evaluated, so on the box's points the culled result
+    equals the full one bitwise; `_full` evaluates every point in both
+    passes (the tests' yardstick).  Outside the box the full evaluation
+    can count an odd number of crossings where a ray grazes an edge
+    (as the voxelizers can); the cull gives those points 0, as JAX's
+    does.  Plain tensors only: call it outside `torch.func` transforms
+    or on unbatched primals.
+    """
+    global FIELD_EVALS
+    FIELD_EVALS += 1
+    N = points.shape[0]
+    chunks = _face_chunks(verts, faces)
+    if _full:
+        cand = torch.arange(N, device=points.device)
+    else:
+        bmin = verts.amin(dim=0) - 1e-6
+        bmax = verts.amax(dim=0) + 1e-6
+        cand = torch.nonzero(((points >= bmin) & (points <= bmax)).all(-1)
+                             ).flatten()
+    n_cross = torch.zeros((N,), dtype=torch.int32, device=points.device)
+    n_cross[cand] = _parity_scan(points[cand], chunks)
+    inside = n_cross % 2 == 1
+    idx = cand if _full else torch.nonzero(inside).flatten()
+    d2, cl = _dist_closest_scan(points[idx], chunks)
+    live = inside[idx]
+    phi = torch.zeros((N,), dtype=torch.float32, device=points.device)
+    closest = torch.zeros((N, 3), dtype=torch.float32, device=points.device)
+    phi[idx] = torch.where(live, _sqrt(d2), 0.0)
+    closest[idx] = torch.where(live[:, None], cl, 0.0)
+    return phi, closest, inside
+
+
+class _SdfAtPoints(torch.autograd.Function):
+    """phi at points with the analytic spatial derivative (JAX's custom
+    JVP, `ops/sdf.py:383-415`).  The second output, g, is the direction
+    (p - closest) / phi where the point is inside at a depth above 1e-5
+    and 0 elsewhere (on-surface points would turn fp noise into huge
+    gradients); it carries no derivative.  The field (the vertices) gets
+    a zero derivative, as the reference's detached grid."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(points, verts, faces):
+        phi, closest, inside = _sdf_at_points_impl(points, verts, faces)
+        live = inside & (phi > 1e-5)
+        g = torch.where(live[:, None], (points - closest)
+                        / torch.clamp_min(phi, 1e-5)[:, None], 0.0)
+        return phi, g
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        g = output[1]
+        ctx.mark_non_differentiable(g)
+        ctx.save_for_backward(g)
+        ctx.save_for_forward(g)
+
+    @staticmethod
+    def jvp(ctx, p_dot, v_dot, f_dot):
+        g, = ctx.saved_tensors
+        return torch.sum(g * p_dot, dim=-1), None
+
+    @staticmethod
+    def backward(ctx, phi_bar, g_bar):
+        g, = ctx.saved_tensors
+        return g * phi_bar[:, None], None, None
+
+
+def sdf_at_points(points: torch.Tensor, verts: torch.Tensor,
+                  faces: torch.Tensor) -> torch.Tensor:
+    """Exact phi (N,) at points (N, 3) in the field of one mesh (V, 3):
+    the gridless limit of `sdf_grid`.  The derivative in points is the
+    unit direction away from the nearest surface point inside (0
+    outside); the mesh is a constant.  Works under `torch.func.jvp`,
+    `vmap` over tangents and `jacrev` while the primal is unbatched: call
+    it once per mesh, never under a vmap over meshes or frames."""
+    return _SdfAtPoints.apply(points, verts, faces)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -398,6 +579,42 @@ def sampled_at_live_frame(phi: torch.Tensor, verts: torch.Tensor
     live `verts`, which keeps its derivative (`sdf.py:1083-1090`)."""
     centers, scales = box_frame(verts)
     return collision_sums_sampled(phi, centers, scales, verts)
+
+
+def collision_sums_points(verts: torch.Tensor, faces: torch.Tensor,
+                          include_self: bool = False) -> torch.Tensor:
+    """`collision_sums` in the G -> infinity limit (the points engine):
+    phi evaluated exactly at the query vertices by `sdf_at_points`.
+
+    verts (P, V, 3) or (V, 3).  Each person's mesh sits in its box frame
+    of the detached vertices (the field is a constant); the queries sit
+    in the live box frame, which keeps its derivative.  A body's own
+    vertices lie on its surface, where the exact field is 0, so by
+    default person i is queried with the other people's vertices,
+    concatenated in order (JAX `ops/sdf.py:1093-1145`); `include_self`
+    queries everyone's.  One field evaluation per person, so it runs
+    under forward- and reverse-mode transforms of the vertices.  Returns
+    (P,); zeros for P = 1 without self queries.
+    """
+    if verts.dim() == 2:
+        verts = verts[None]
+    P = verts.shape[0]
+    field = verts.detach()
+    centers_det, scales_det = box_frame(field)
+    centers, scales = box_frame(verts)
+    sums = []
+    for i in range(P):
+        if include_self:
+            others = verts.reshape(-1, 3)
+        elif P == 1:
+            sums.append(verts.new_zeros(()))
+            continue
+        else:
+            others = torch.cat([verts[j] for j in range(P) if j != i])
+        mesh = (field[i] - centers_det[i]) / scales_det[i]
+        q = (others - centers[i]) / scales[i]
+        sums.append(torch.sum(sdf_at_points(q, mesh, faces)))
+    return torch.stack(sums)
 
 
 def collision_energy(verts: torch.Tensor, faces: torch.Tensor,

@@ -305,9 +305,6 @@ def test_fit_people_grid_matches_jax(people):
                                rtol=5e-2)
     np.testing.assert_allclose(got.params.transl.numpy(),
                                np.asarray(want.params.transl), atol=1e-2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        TM.fit_people(cfg, p["ta"], p["tc"], p["to"], vposer_w=p["tw"],
-                      device="cpu")
 
 
 @pytest.mark.parametrize("mode,want", [

@@ -12,7 +12,10 @@ Without a GPU every test skips.  Tolerances are the kernel ones: RTOL
 atol 3e-4 max|D|.  The joint-Jacobian and tail kernels run at B=1, 130
 (not a multiple of the joint kernel's 8-frame tiles, so its ragged last
 tile is covered) and 512 (the batched fit's batch).  The SDF
-voxelizers are compared bitwise (see `test_sdf_kernels_on_card`).
+voxelizers are compared bitwise (see `test_sdf_kernels_on_card`).  The
+points engine's field (plain PyTorch on both devices) holds the CPU's
+inside set at atol 1e-5, and the fused fit the CPU's stage losses at
+rtol 1e-3.
 """
 
 import numpy as np
@@ -128,3 +131,47 @@ def test_sdf_kernels_on_card(cuda_device):
     assert listed.numel() == int(inside.sum())
     assert torch.equal(inside.reshape(b3.shape), b3 > 0)
     assert bool((work["visits"][:n] > 0).all())
+
+
+@pytest.mark.cuda
+def test_point_field_on_card(cuda_device):
+    """The points engine's field on the card against the CPU: each posed
+    body's vertices in the other's field."""
+    verts, faces = posed_bodies()
+    before = sdf_ops.FIELD_EVALS
+    for i in range(2):
+        q, mesh = verts[1 - i], verts[i]
+        card = sdf_ops._sdf_at_points_impl(q.to(cuda_device),
+                                           mesh.to(cuda_device),
+                                           faces.to(cuda_device))
+        cpu = sdf_ops._sdf_at_points_impl(q, mesh, faces)
+        phi, closest, inside = (t.cpu() for t in card)
+        assert int(cpu[2].sum()) > 100
+        assert torch.equal(inside, cpu[2])
+        torch.testing.assert_close(phi, cpu[0], rtol=0.0, atol=1e-5)
+        torch.testing.assert_close(closest[inside], cpu[1][cpu[2]],
+                                   rtol=0.0, atol=1e-5)
+    assert sdf_ops.FIELD_EVALS == before + 4
+
+
+@pytest.mark.cuda
+def test_fused_fit_on_card(cuda_device):
+    """`FitConfig.fused` (all stages in one LM loop, chol, classic LM, 3
+    iterations per stage) on 2 frames: the card against the CPU."""
+    from mvsmplfitting_tpu_torch.fitting.lm import LMOptions
+    from mvsmplfitting_tpu_torch.fitting.stages import FitConfig
+    from mvsmplfitting_tpu_torch.parallel.batched import (
+        BatchedFitInputs, batched_fit_frames)
+    from mvsmplfitting_tpu_torch.synthetic import make_problem
+
+    cfg = FitConfig(lm=LMOptions(max_iters=3, linsolve="chol",
+                                 speculative=False), fused=True)
+    losses = []
+    for d in (cuda_device, torch.device("cpu")):
+        assets, vw, cam, obs = make_problem(6, 2, seed=1, device=d)
+        res = batched_fit_frames(
+            cfg, assets, cam, BatchedFitInputs(obs, torch.full(
+                (2,), 1080.0, device=d)), vposer_w=vw, device=d)
+        assert res.lm_iters.tolist() == [[3] * 4] * 2
+        losses.append(res.stage_losses.cpu())
+    torch.testing.assert_close(losses[0], losses[1], rtol=1e-3, atol=0.0)

@@ -1,13 +1,20 @@
 """Where the time of the PyTorch port's fits goes, on one GPU.
 
-    python3 tools/profile_torch_fit.py [--frames 512] [--iters 40]
+    python3 tools/profile_torch_fit.py [--frames 512] [--iters 40] \
+        [--classic] [--fused]
     python3 tools/profile_torch_fit.py --multi [--grid 128]
+    python3 tools/profile_torch_fit.py --multi --engine points \
+        [--points-jac ad|analytic]
 
 Runs the port's main path (`batched_fit_frames`, 6 views, smpl, library
-defaults), or with `--multi` the two-person collision fit (`fit_people`,
-grid engine, hybrid schedule, the weights of
-`cfg_files/fit_multi_person_sdf.yaml`, LM max_iters 60, on the dx0=0.2
-fixture), once to warm up, then once timed without the profiler and
+defaults; `--classic` turns speculative LM off, `--fused` runs all stages
+in one LM loop, `FitConfig.fused`, which is classic LM), or with `--multi` the two-person collision fit on the dx0=0.2
+fixture (`fit_people`): with the grid engine (the default here), the
+hybrid schedule, the weights of `cfg_files/fit_multi_person_sdf.yaml`
+and LM max_iters 60; with `--engine points`, JAX's default engine and
+refinement (15 iterations, annealed, two starts) under the library's
+stage weights and LM max_iters 40 (`chip_smoke.py` [points]), once to
+warm up, then once timed without the profiler and
 once under `torch.profiler`, with the fit's layers wrapped in
 `record_function` ranges (by patching module attributes here; the
 package itself carries no instrumentation).  Prints, one JSON object
@@ -40,6 +47,7 @@ LAYERS = (
     ("ops.sdf_kernel", "sdf_grid_fast"),
     ("ops.sdf_kernel", "cull_tables"),
     ("ops.sdf", "collision_sums_sampled"),
+    ("ops.sdf", "_sdf_at_points_impl"),
     ("fitting.energy", "residual_jacobian"),
     ("fitting.energy", "residuals"),
     ("fitting.energy", "total_energy"),
@@ -72,6 +80,21 @@ def _wrap_layers():
     multi_person.fit_frame = stages.fit_frame
     multi_person.ad_jacobian = lm.ad_jacobian
     stages.ad_jacobian = lm.ad_jacobian
+    # The points refinement's closed-form Jacobian is a closure of
+    # `make_points_forms`: time the closures it returns.
+    make = multi_person.make_points_forms
+
+    def make_points_forms(*a, **kw):
+        residual_fn, jac_fn = make(*a, **kw)
+
+        def timed(fn, name):
+            def inner(*x, **k):
+                with record_function(name):
+                    return fn(*x, **k)
+            return inner
+        return (timed(residual_fn, "points_forms.residual_fn"),
+                timed(jac_fn, "points_forms.jac_fn"))
+    multi_person.make_points_forms = make_points_forms
 
 
 def _category(name: str) -> str:
@@ -99,10 +122,19 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=512)
     ap.add_argument("--iters", type=int, default=40)
+    ap.add_argument("--classic", action="store_true",
+                    help="classic LM (speculative=False) for the B-frame fit")
+    ap.add_argument("--fused", action="store_true",
+                    help="FitConfig.fused for the B-frame fit")
     ap.add_argument("--multi", action="store_true",
                     help="profile the two-person collision fit instead")
     ap.add_argument("--grid", type=int, default=128,
-                    help="collision grid size of --multi")
+                    help="collision grid size of --multi (grid engine)")
+    ap.add_argument("--engine", choices=("grid", "points"), default="grid",
+                    help="collision engine of --multi")
+    ap.add_argument("--points-jac", choices=("ad", "analytic"),
+                    default="ad", help="refinement Jacobian of --engine "
+                    "points")
     ap.add_argument("--trace", default=None,
                     help="write the Chrome trace of the profiled fit here")
     args = ap.parse_args()
@@ -131,23 +163,31 @@ def main() -> int:
         from mvsmplfitting_tpu_torch.synthetic import make_people_problem
         B = 2
         assets, vw, cam, obs = make_people_problem(0.2, device=dev)
-        cfg = FitConfig(
-            spec=EnergySpec(interpenetration=True, coll_grid_size=args.grid),
-            pose_weights=(404.0, 404.0, 57.4, 4.78),
-            shape_weights=(100.0, 50.0, 10.0, 5.0),
-            coll_weights=(0.0, 0.0, 1000.0, 4500.0),
-            lm=LMOptions(max_iters=60))
+        if args.engine == "grid":
+            cfg = FitConfig(
+                spec=EnergySpec(interpenetration=True,
+                                coll_grid_size=args.grid),
+                pose_weights=(404.0, 404.0, 57.4, 4.78),
+                shape_weights=(100.0, 50.0, 10.0, 5.0),
+                coll_weights=(0.0, 0.0, 1000.0, 4500.0),
+                lm=LMOptions(max_iters=60))
+        else:
+            cfg = FitConfig(spec=EnergySpec(interpenetration=True),
+                            lm=LMOptions(max_iters=40))
 
         def fit():
             res, _ = fit_people(cfg, assets, cam, obs, vposer_w=vw,
-                                sdf_engine="grid", device=dev)
+                                sdf_engine=args.engine,
+                                points_jac=args.points_jac, device=dev)
             torch.cuda.synchronize()
             return res
     else:
         B = args.frames
         assets, vw, cam, obs = make_problem(6, B, seed=0, device=dev)
         batch = BatchedFitInputs(obs, torch.full((B,), 1080.0, device=dev))
-        cfg = FitConfig(lm=LMOptions(max_iters=args.iters))
+        cfg = FitConfig(lm=LMOptions(max_iters=args.iters,
+                                     speculative=not args.classic),
+                        fused=args.fused)
 
         def fit():
             res = batched_fit_frames(cfg, assets, cam, batch, vposer_w=vw,
@@ -177,7 +217,8 @@ def main() -> int:
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
-    layer_names = {f"{m}.{f}" for m, f in LAYERS}
+    layer_names = {f"{m}.{f}" for m, f in LAYERS} | {
+        "points_forms.residual_fn", "points_forms.jac_fn"}
     # Device activity (kernels, copies) has no host time of its own; the
     # host ops that launched it and the layer ranges are left out.
     kernels = [e for e in events if dev_self(e) > 0
@@ -198,7 +239,9 @@ def main() -> int:
          "calls": e.count} for e in top]}), flush=True)
     print(json.dumps({"layers": [
         {"name": e.key, "calls": e.count,
-         "host_ms": e.cpu_time_total / 1e3}
+         "host_ms": e.cpu_time_total / 1e3,
+         "device_ms": getattr(e, "device_time_total",
+                              getattr(e, "cuda_time_total", 0.0)) / 1e3}
         for e in events if e.key in layer_names
         and e.cpu_time_total > 0]}), flush=True)
     if args.trace:
