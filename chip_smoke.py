@@ -67,10 +67,40 @@ Phases (each prints one line; any failure exits non-zero):
      LM loop): frames/s and the share of frames whose final loss is
      within rtol 0.1 of [fit]'s; an 8-frame fused fit (chol, classic)
      on the card against the CPU, stage losses at rtol 1e-3;
+ 11. [lbfgs] `batched_fit_frames` with the strong-Wolfe L-BFGS parity
+     solver as `session.py` maps `cfg_files/fit_smpl_lbfgs_parity.yaml`
+     (smpllsp, VPoser, l2, no collision, 120 iterations per stage,
+     history 16, 25 line-search steps) on `B_LBFGS` frames (8, cut from
+     512, see there): frames/s, per stage the iterations and objective
+     evaluations (min/median/max over frames) and the batched
+     evaluations, the median final loss; no kernel launches (the
+     gradient is one reverse pass through the plain joint model, as
+     JAX's `value_and_grad`); an 8-frame fit (3 iterations per stage) on
+     the card against the CPU at rtol 1e-3;
+ 12. [grad] adam on 512 frames (lr 1e-2, 150 steps per stage, JAX's
+     `tests/test_fitting.py:248-266`): every frame's final loss below its
+     last-stage energy at the start; no kernel launches;
+ 13. [gmm] `init_guess` + `fit_frame` on 512 frames without VPoser and
+     with the GMM pose prior (`random_gmm`: 8 components x 69), body_pose
+     from [1]*6 + [0]*63 as `cli/main.py:293-298`, LM library defaults
+     with 40 iterations: B1 launches >= LM iterations, B2 none; an
+     8-frame fit (chol, classic) on the card against the CPU at rtol
+     1e-3;
+ 14. [seq] 512 sequences of 4 steps in lockstep (`synthetic.
+     make_sequence`, smpllsp, VPoser, `cfg_files/fit_seq.yaml`'s
+     weights, `is_seq`): step 0 from scratch, each later step through
+     `warm_start` and `fit_frame(seq_start=False)` (2 stages); per step
+     frames/s and the share of frames that took the previous solution;
+     B1 and B2 launch on every step;
+ 15. [adjust] `refit_with_observations` on [fit]'s result against
+     keypoints of each body moved +8 cm in x (`tests/test_misc.py:51-79`):
+     the translation moves by (0.08, 0, 0) within 0.02 on >= 95% of the
+     frames;
 then the total seconds, the card line, the kernels JSON line and the
 result line.  Each path's launch counters are set to 0 just before it
 and read just after; the JSON line gives every kernel's launches summed
-over [fit], [collide], [multi], [points] (both runs) and [fused].
+over [fit], [collide], [multi], [points] (both runs), [fused], [lbfgs],
+[grad], [gmm], [seq] (all steps) and [adjust].
 """
 
 from __future__ import annotations
@@ -92,6 +122,14 @@ B_KERNEL = 512
 B_FIT = 512
 B_COLLIDE = 8
 B_MULTI = 2            # [multi]'s two people, fitted side by side
+B_CHECK = 8            # the card-vs-CPU fits
+# [lbfgs]'s frames, cut from B_FIT: a batch's line search runs until its
+# slowest frame is done, so the wall follows the worst frames (on an H100
+# at 700 W, 512 frames took 138.7 s: 7118 batched evaluations at ~19.5
+# ms of host time each); `tools/profile_torch_fit.py --solver lbfgs` runs
+# all 512.
+B_LBFGS = 8
+SEQ_STEPS = 4
 G_FIT = 128            # the reference's production grid (fitting.py:374)
 G_CHECK = 64           # the grid of the kernel-vs-plain check
 
@@ -840,6 +878,297 @@ def fused_phase(dev, launches: dict, fit_loss: torch.Tensor) -> None:
         tolerance="rtol 1e-3")
 
 
+def _spread(t: torch.Tensor) -> str:
+    """min/median/max of per-frame counts."""
+    t = t.double()
+    return f"{int(t.min())}/{t.median().item():g}/{int(t.max())}"
+
+
+class LBFGSStats:
+    """Each call of the staged fit's `lbfgs_fit` for the length of a
+    `with` block: per-frame iterations and evaluations, and the batched
+    objective evaluations it made."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from mvsmplfitting_tpu_torch.fitting import stages
+        self.stages, self.orig = stages, stages.lbfgs_fit
+
+        def counted_fit(fg, x0, mask, opts):
+            n = [0]
+
+            def counted(x):
+                n[0] += 1
+                return fg(x)
+            out = self.orig(counted, x0, mask, opts)
+            self.calls.append((out[2].cpu(), out[3].cpu(), n[0]))
+            return out
+        stages.lbfgs_fit = counted_fit
+        return self
+
+    def __exit__(self, *exc):
+        self.stages.lbfgs_fit = self.orig
+
+
+def check_fits(run, dev, rtol: float = 1e-3) -> float:
+    """`run(device)` -> stage losses of a short fit, on the card `dev`
+    and on the CPU; they must agree at rtol.  Returns the largest
+    relative difference."""
+    got = {name: run(d).cpu() for name, d in (("cuda", dev),
+                                                ("cpu", "cpu"))}
+    torch.testing.assert_close(got["cuda"], got["cpu"], rtol=rtol, atol=0.0)
+    return ((got["cuda"] - got["cpu"]).abs()
+            / got["cpu"].abs()).max().item()
+
+
+def lbfgs_phase(dev, launches: dict) -> None:
+    """[lbfgs]: the parity solver on B_LBFGS frames (see the
+    docstring)."""
+    from mvsmplfitting_tpu_torch.fitting.lbfgs import LBFGSOptions
+    from mvsmplfitting_tpu_torch.fitting.stages import FitConfig
+    from mvsmplfitting_tpu_torch.ops import joint_kernel as JK
+    from mvsmplfitting_tpu_torch.ops import sdf_kernel as SK
+    from mvsmplfitting_tpu_torch.ops import vposer_kernel as VK
+    from mvsmplfitting_tpu_torch.parallel.batched import (
+        BatchedFitInputs, batched_fit_frames)
+    from mvsmplfitting_tpu_torch.synthetic import make_problem
+
+    def config(max_iters):
+        # `session.py:115-142` on fit_smpl_lbfgs_parity.yaml: maxiters 30
+        # gives 120 L-BFGS iterations per stage; lr 1, ftol = gtol = 1e-9.
+        return FitConfig(solver="lbfgs",
+                         coll_weights=(0.0, 0.0, 0.0, 0.0),
+                         lbfgs=LBFGSOptions(max_iters=max_iters, lr=1.0,
+                                            ftol=1e-9, gtol=1e-9))
+
+    def problem(d, B):
+        return make_problem(6, B, seed=0, device=d, model_type="smpllsp")
+
+    def fit(prob, cfg):
+        assets, vw, cam, obs = prob
+        B = obs.gt2d.shape[0]
+        return batched_fit_frames(
+            cfg, assets, cam, BatchedFitInputs(
+                obs, torch.full((B,), 1080.0, device=obs.gt2d.device)),
+            vposer_w=vw, device=obs.gt2d.device)
+
+    cfg = config(120)
+    prob = problem(dev, B_LBFGS)
+    torch.cuda.synchronize()
+    reset_launches(JK, VK, SK)
+    with LBFGSStats() as stats:
+        t0 = time.perf_counter()
+        res = fit(prob, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    got = read_launches(JK, VK, SK)
+    assert res.stage_losses.shape == (B_LBFGS, 4)
+    assert bool(torch.isfinite(res.loss).all()), "non-finite loss"
+    assert got["joint_jacobian"] == 0 and got["vposer_tail"] == 0, got
+    launches["lbfgs"] = got
+    log("lbfgs", frames=B_LBFGS, model="smpllsp",
+        fps=f"{B_LBFGS / wall:.2f}",
+        wall_s=f"{wall:.3f}",
+        iterations_per_stage=",".join(_spread(c[0]) for c in stats.calls),
+        evaluations_per_stage=",".join(_spread(c[1]) for c in stats.calls),
+        batched_evaluations=",".join(str(c[2]) for c in stats.calls),
+        median_final_loss=f"{res.loss.median().item():.3f}",
+        launches=json.dumps(got).replace(" ", ""))
+    rel = check_fits(lambda d: fit(problem(d, B_CHECK),
+                                   config(3)).stage_losses, dev)
+    log("lbfgs", parity_frames=B_CHECK, iterations_per_stage=3,
+        stage_losses_max_rel=f"{rel:.3e}", tolerance="rtol 1e-3")
+
+
+def grad_phase(dev, launches: dict) -> None:
+    """[grad]: adam on 512 frames with its quality gate."""
+    from mvsmplfitting_tpu_torch.fitting import energy as E
+    from mvsmplfitting_tpu_torch.fitting.gradient import GradientOptions
+    from mvsmplfitting_tpu_torch.fitting.initialize import init_guess
+    from mvsmplfitting_tpu_torch.fitting.stages import (FitConfig,
+                                                         default_stages)
+    from mvsmplfitting_tpu_torch.ops import joint_kernel as JK
+    from mvsmplfitting_tpu_torch.ops import sdf_kernel as SK
+    from mvsmplfitting_tpu_torch.ops import vposer_kernel as VK
+    from mvsmplfitting_tpu_torch.parallel.batched import (
+        BatchedFitInputs, batched_fit_frames)
+    from mvsmplfitting_tpu_torch.synthetic import make_problem
+
+    cfg = FitConfig(solver="adam",
+                    grad=GradientOptions(optim_type="adam", lr=1e-2,
+                                         max_iters=150))
+    assets, vw, cam, obs = make_problem(6, B_FIT, seed=0, device=dev)
+    h = torch.full((B_FIT,), 1080.0, device=dev)
+    torch.cuda.synchronize()
+    reset_launches(JK, VK, SK)
+    t0 = time.perf_counter()
+    res = batched_fit_frames(cfg, assets, cam, BatchedFitInputs(obs, h),
+                             vposer_w=vw, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_launches(JK, VK, SK)
+    assert got["joint_jacobian"] == 0 and got["vposer_tail"] == 0, got
+    launches["grad"] = got
+    guess = init_guess(assets, cam, obs.gt2d, obs.conf, obs.view_mask)
+    e0 = E.total_energy(cfg.spec, assets, cam, obs,
+                        default_stages(cfg, h)[-1], vw, None,
+                        E.pack(cfg.spec, guess.params, guess.z))
+    below = res.loss < e0
+    log("grad", frames=B_FIT, optimizer="adam", fps=f"{B_FIT / wall:.1f}",
+        wall_s=f"{wall:.3f}",
+        steps_per_stage=",".join(_spread(c) for c in res.lm_iters.T),
+        median_final_loss=f"{res.loss.median().item():.3f}",
+        median_start_energy=f"{e0.median().item():.3f}",
+        share_below_start=f"{below.double().mean().item():.4f}",
+        launches=json.dumps(got).replace(" ", ""))
+    assert bool(torch.isfinite(res.loss).all()), "non-finite loss"
+    assert bool(below.all()), (res.loss[~below], e0[~below])
+
+
+def gmm_phase(dev, launches: dict) -> None:
+    """[gmm]: the GMM pose prior without VPoser on 512 frames."""
+    from mvsmplfitting_tpu_torch.fitting.energy import EnergySpec
+    from mvsmplfitting_tpu_torch.fitting.initialize import init_guess
+    from mvsmplfitting_tpu_torch.fitting.lm import LMOptions
+    from mvsmplfitting_tpu_torch.fitting.stages import FitConfig, fit_frame
+    from mvsmplfitting_tpu_torch.models.priors import random_gmm
+    from mvsmplfitting_tpu_torch.ops import joint_kernel as JK
+    from mvsmplfitting_tpu_torch.ops import sdf_kernel as SK
+    from mvsmplfitting_tpu_torch.ops import vposer_kernel as VK
+    from mvsmplfitting_tpu_torch.synthetic import make_problem
+
+    spec = EnergySpec(use_vposer=False, prior_type="gmm")
+
+    def problem(d, B):
+        assets, _, cam, obs = make_problem(6, B, seed=0, device=d)
+        return assets, cam, obs, random_gmm(device=d)
+
+    def fit(prob, lm):
+        assets, cam, obs, gmm = prob
+        guess = init_guess(assets, cam, obs.gt2d, obs.conf, obs.view_mask)
+        bent = torch.zeros_like(guess.params.body_pose)
+        bent[:, :6] = 1.0
+        params = dataclasses.replace(guess.params, body_pose=bent)
+        return fit_frame(FitConfig(spec=spec, lm=lm), assets, cam, obs,
+                         params, guess.z, gmm=gmm, img_height=1080.0)
+
+    prob = problem(dev, B_FIT)
+    torch.cuda.synchronize()
+    reset_launches(JK, VK, SK)
+    t0 = time.perf_counter()
+    res = fit(prob, LMOptions(max_iters=40))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_launches(JK, VK, SK)
+    lm_iters = int(res.lm_iters.amax(dim=0).sum().item())
+    assert res.stage_losses.shape == (B_FIT, 4)
+    assert bool(torch.isfinite(res.stage_losses).all()), "non-finite loss"
+    assert got["joint_jacobian"] >= lm_iters, (got, lm_iters)
+    assert got["vposer_tail"] == 0, got
+    launches["gmm"] = got
+    log("gmm", frames=B_FIT, model="smpl", unknowns=86, components=8,
+        fps=f"{B_FIT / wall:.1f}", wall_s=f"{wall:.3f}",
+        lm_iterations=lm_iters,
+        median_final_loss=f"{res.loss.median().item():.3f}",
+        launches=json.dumps(got).replace(" ", ""))
+    rel = check_fits(lambda d: fit(problem(d, B_CHECK), LMOptions(
+        max_iters=3, linsolve="chol", speculative=False)).stage_losses, dev)
+    log("gmm", parity_frames=B_CHECK, stage_losses_max_rel=f"{rel:.3e}",
+        tolerance="rtol 1e-3")
+
+
+def seq_phase(dev, launches: dict) -> None:
+    """[seq]: 512 sequences of SEQ_STEPS steps in lockstep."""
+    from mvsmplfitting_tpu_torch.fitting.initialize import (init_guess,
+                                                             warm_start)
+    from mvsmplfitting_tpu_torch.fitting.lm import LMOptions
+    from mvsmplfitting_tpu_torch.fitting.stages import FitConfig, fit_frame
+    from mvsmplfitting_tpu_torch.ops import joint_kernel as JK
+    from mvsmplfitting_tpu_torch.ops import sdf_kernel as SK
+    from mvsmplfitting_tpu_torch.ops import vposer_kernel as VK
+    from mvsmplfitting_tpu_torch.synthetic import make_sequence
+
+    # cfg_files/fit_seq.yaml's weights; LM as [fit].
+    cfg = FitConfig(pose_weights=(404.0, 404.0, 57.4, 4.78),
+                    shape_weights=(100.0, 50.0, 10.0, 5.0),
+                    coll_weights=(0.0, 0.0, 0.0, 0.0), is_seq=True,
+                    lm=LMOptions(max_iters=40))
+    assets, vw, cam, steps = make_sequence(6, B_FIT, SEQ_STEPS, seed=0,
+                                           device=dev, model_type="smpllsp")
+    prev = None
+    per_step = []
+    t_all = time.perf_counter()
+    for k, obs in enumerate(steps):
+        torch.cuda.synchronize()
+        reset_launches(JK, VK, SK)
+        t0 = time.perf_counter()
+        guess = init_guess(assets, cam, obs.gt2d, obs.conf, obs.view_mask)
+        warm = 0.0
+        if prev is not None:
+            warm = (prev.loss <= 5000.0).double().mean().item()
+            guess = warm_start(prev.params, prev.z, prev.loss, guess)
+        prev = fit_frame(cfg, assets, cam, obs, guess.params, guess.z,
+                         vposer_w=vw, seq_start=k == 0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_launches(JK, VK, SK)
+        assert prev.stage_losses.shape == (B_FIT, 4 if k == 0 else 2)
+        assert bool(torch.isfinite(prev.loss).all()), "non-finite loss"
+        assert got["joint_jacobian"] > 0 and got["vposer_tail"] > 0, got
+        launches[f"seq_{k}"] = got
+        per_step.append(f"{B_FIT / wall:.1f}")
+        log("seq", step=k, frames=B_FIT, stages=prev.stage_losses.shape[1],
+            fps=f"{B_FIT / wall:.1f}", wall_s=f"{wall:.3f}",
+            share_warm_started=f"{warm:.4f}",
+            lm_iterations=int(prev.lm_iters.amax(dim=0).sum().item()),
+            median_final_loss=f"{prev.loss.median().item():.3f}",
+            launches=json.dumps(got).replace(" ", ""))
+    log("seq", sequences=B_FIT, steps=SEQ_STEPS,
+        wall_s=f"{time.perf_counter() - t_all:.3f}",
+        fps_per_step=",".join(per_step))
+
+
+def adjust_phase(dev, launches: dict, cfg, assets, vw, cam, obs,
+                 first) -> None:
+    """[adjust]: one refit of [fit]'s result against keypoints of each
+    body moved +8 cm in x."""
+    from mvsmplfitting_tpu_torch.fitting.adjust import (
+        refit_with_observations)
+    from mvsmplfitting_tpu_torch.models.camera import project_points
+    from mvsmplfitting_tpu_torch.models.smpl import smpl_forward
+    from mvsmplfitting_tpu_torch.ops import joint_kernel as JK
+    from mvsmplfitting_tpu_torch.ops import sdf_kernel as SK
+    from mvsmplfitting_tpu_torch.ops import vposer_kernel as VK
+
+    shift = torch.tensor([0.08, 0.0, 0.0], device=dev)
+    moved = dataclasses.replace(first.params,
+                                transl=first.params.transl + shift)
+    _, joints = smpl_forward(assets, moved, first.body_pose)
+    edited = dataclasses.replace(
+        obs, gt2d=project_points(cam, joints).transpose(0, 1).contiguous())
+    torch.cuda.synchronize()
+    reset_launches(JK, VK, SK)
+    t0 = time.perf_counter()
+    res = refit_with_observations(cfg, assets, cam, edited, first,
+                                  vposer_w=vw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_launches(JK, VK, SK)
+    assert got["joint_jacobian"] > 0 and got["vposer_tail"] > 0, got
+    launches["adjust"] = got
+    delta = res.params.transl - first.params.transl
+    ok = ((delta - shift).abs() <= 0.02).all(-1)
+    log("adjust", frames=B_FIT, fps=f"{B_FIT / wall:.1f}",
+        wall_s=f"{wall:.3f}", lm_iterations=int(res.lm_iters.max()),
+        median_delta=_compact(delta.median(0).values, 4),
+        share_within_0_02=f"{ok.double().mean().item():.4f}",
+        launches=json.dumps(got).replace(" ", ""))
+    assert bool(torch.isfinite(res.loss).all()), "non-finite loss"
+    assert ok.double().mean().item() >= 0.95, delta
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1016,6 +1345,11 @@ def main() -> int:
     multi_phase(dev, path)
     points_phase(dev, path)
     fused_phase(dev, path, res.loss)
+    lbfgs_phase(dev, path)
+    grad_phase(dev, path)
+    gmm_phase(dev, path)
+    seq_phase(dev, path)
+    adjust_phase(dev, path, cfg, assets, vw, cam, obs, res)
     # Every kernel's launches summed over the fit paths.
     for name in kernels:
         kernels[name]["launches"] = sum(p.get(name, 0) for p in path.values())

@@ -6,9 +6,11 @@ Inside, frames are an explicit leading batch dimension (in place of
 `jax.vmap`), parameters are dataclasses of tensors, and every entry point
 takes a `device` that defaults to CUDA (see `device.resolve_device`).
 
-The slice ported so far is the batched single-person Levenberg-Marquardt
-fit (`parallel.batched.batched_fit_frames`), with the two kernels on its
-path hand-written in CUDA C++ under `csrc/`.
+Ported so far: the batched single-person fit
+(`parallel.batched.batched_fit_frames`) with every solver, prior and
+sequence option of JAX's `FitConfig` for smpl/smpllsp, and the
+multi-person collision fits (`fitting.multi_person.fit_people`); the
+kernels on their paths are hand-written in CUDA C++ under `csrc/`.
 """
 
 from .device import resolve_device

@@ -17,6 +17,7 @@ from .device import DeviceLike, resolve_device
 from .fitting.energy import Observations
 from .models.camera import Camera
 from .models.joint_model import JointModel
+from .models.priors import GMMPrior
 from .models.smpl import SMPLAssets, SMPLParams
 from .models.vposer import VPoserWeights
 
@@ -85,12 +86,27 @@ def camera(arrays: Arrays, device: DeviceLike = None) -> Camera:
 
 def observations(arrays: Arrays, device: DeviceLike = None) -> Observations:
     """Frame-batched `Observations`: gt2d (B, V, K, 2), conf (B, V, K),
-    view_mask (B, V), joint_weights (B, K)."""
+    view_mask (B, V), joint_weights (B, K), and the optional 3D joints
+    gt3d (B, K, 3) with conf3d (B, K)."""
     dev = resolve_device(device)
+
+    def opt(name):
+        a = arrays.get(name)
+        return None if a is None else _f32(a, dev)
     return Observations(gt2d=_f32(arrays["gt2d"], dev),
                         conf=_f32(arrays["conf"], dev),
                         view_mask=_f32(arrays["view_mask"], dev),
-                        joint_weights=_f32(arrays["joint_weights"], dev))
+                        joint_weights=_f32(arrays["joint_weights"], dev),
+                        gt3d=opt("gt3d"), conf3d=opt("conf3d"))
+
+
+def gmm(arrays: Arrays, device: DeviceLike = None) -> GMMPrior:
+    """`GMMPrior` from the JAX `GMMPrior` arrays (already float32)."""
+    dev = resolve_device(device)
+    return GMMPrior(means=_f32(arrays["means"], dev),
+                    precisions=_f32(arrays["precisions"], dev),
+                    prec_chol=_f32(arrays["prec_chol"], dev),
+                    nll_weights=_f32(arrays["nll_weights"], dev))
 
 
 def smpl_params(arrays: Arrays, device: DeviceLike = None) -> SMPLParams:

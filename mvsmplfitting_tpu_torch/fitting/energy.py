@@ -3,8 +3,9 @@
 
 `total_energy` is the scalar objective of the reference's `SMPLifyLoss`
 (`code/utils/fitting.py:290-415`): GMoF-robustified, confidence-weighted
-2D reprojection over all views plus the VPoser / L2 pose prior, the L2
-shape prior and the exponential bending prior.  `residuals` restates it
+2D reprojection over all views plus the VPoser / GMM / L2 pose prior,
+the L2 shape prior, the exponential bending prior and the optional
+3D-joint term.  `residuals` restates it
 as a least-squares vector with ``sum(r^2) == total_energy`` for the LM
 solver, and `residual_jacobian` gives (r, dr/dx) with the deep blocks in
 closed form (the two CUDA kernels on the card).
@@ -15,8 +16,8 @@ the card, so `residuals` takes the grids as an argument when it runs
 inside a `torch.func` transform (see `collision_grids`).
 
 Every function takes x (B, n) and returns per-frame values.  Not ported
-yet: the 3D-joint term, the GMM prior and the SMPL-H/X parameter blocks;
-asking for them raises NotImplementedError.
+yet: the SMPL-H/X parameter blocks; asking for them raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from torch.func import jvp, vmap
 
 from ..models import vposer as vposer_lib
 from ..models.camera import Camera, project_points
-from ..models.priors import angle_prior_terms
+from ..models.priors import GMMPrior, angle_prior_terms
 from ..models.smpl import SMPLAssets, SMPLParams, smpl_forward
 from ..ops import sdf as sdf_ops
 from ..ops.robust import gmof, gmof_residual
@@ -45,9 +46,11 @@ class Observations:
     conf: torch.Tensor           # (B, V, K) detection confidences
     view_mask: torch.Tensor      # (B, V) 1 for live views
     joint_weights: torch.Tensor  # (B, K) per-joint data weights
+    gt3d: Optional[torch.Tensor] = None    # (B, K, 3) 3D joints
+    conf3d: Optional[torch.Tensor] = None  # (B, K)
 
     def to(self, device) -> "Observations":
-        return Observations(*(t.to(device)
+        return Observations(*(None if t is None else t.to(device)
                               for t in dataclasses.astuple(self)))
 
 
@@ -96,12 +99,7 @@ class EnergySpec:
 
 
 def check_ported(spec: EnergySpec) -> None:
-    """Raise NotImplementedError for energy terms not ported yet."""
-    if spec.use_3d:
-        raise NotImplementedError("the 3D-joint data term is not ported yet")
-    if not spec.use_vposer and spec.prior_type != "l2":
-        raise NotImplementedError(
-            f"prior_type {spec.prior_type!r} is not ported yet (only l2)")
+    """Raise NotImplementedError for the blocks not ported yet."""
     if extra_dims(spec):
         raise NotImplementedError(
             "SMPL-H/X hand, expression and face blocks are not ported yet")
@@ -204,10 +202,14 @@ def _project(cam: Camera, joints: torch.Tensor) -> torch.Tensor:
     return project_points(cam, joints).transpose(0, 1)
 
 
+def _use_3d(spec: EnergySpec, obs: Observations) -> bool:
+    return spec.use_3d and obs.gt3d is not None
+
+
 def energy_terms(spec: EnergySpec, assets: SMPLAssets, cam: Camera,
                  obs: Observations, weights: StageWeights,
                  vposer_w: Optional[vposer_lib.VPoserWeights],
-                 gmm, x: torch.Tensor) -> dict:
+                 gmm: Optional[GMMPrior], x: torch.Tensor) -> dict:
     """All energy terms as a dict of (B,) tensors (see `total_energy`)."""
     check_ported(spec)
     params, z, body_pose, verts, joints = _forward(
@@ -219,11 +221,22 @@ def energy_terms(spec: EnergySpec, assets: SMPLAssets, cam: Camera,
     joint_loss = (torch.sum(w[..., None] ** 2 * diff, dim=(1, 2, 3))
                   * weights.data ** 2)
 
+    loss3d = zero
+    if _use_3d(spec, obs):
+        d3 = gmof(obs.gt3d - joints, spec.rho)
+        loss3d = (torch.sum(obs.conf3d[..., None] ** 2 * d3, dim=(1, 2))
+                  * weights.data ** 2)
+
     if spec.use_vposer:
         pprior = torch.sum(z * z, dim=-1) * weights.pose ** 2
     else:
         sq = torch.sum(body_pose ** 2, dim=-1)
-        pprior = sq * weights.pose ** 2 + sq * (weights.pose * 4) ** 2
+        if spec.prior_type == "gmm":
+            base = gmm.merged_nll(body_pose) * weights.pose ** 2
+            base = torch.where(base > 5e4, zero, base)  # `fitting.py:334`
+        else:
+            base = sq * weights.pose ** 2
+        pprior = base + sq * (weights.pose * 4) ** 2
 
     shape_loss = zero
     if not spec.fix_shape:
@@ -239,7 +252,7 @@ def energy_terms(spec: EnergySpec, assets: SMPLAssets, cam: Camera,
                                         _col(weights.coll, 1),
                                         spec.coll_grid_size)
 
-    return {"joint": joint_loss, "joint3d": zero, "pose_prior": pprior,
+    return {"joint": joint_loss, "joint3d": loss3d, "pose_prior": pprior,
             "shape_prior": shape_loss, "angle_prior": angle,
             "collision": coll, "extra_prior": zero}
 
@@ -247,24 +260,49 @@ def energy_terms(spec: EnergySpec, assets: SMPLAssets, cam: Camera,
 def total_energy(spec: EnergySpec, assets: SMPLAssets, cam: Camera,
                  obs: Observations, weights: StageWeights,
                  vposer_w: Optional[vposer_lib.VPoserWeights],
-                 gmm, x: torch.Tensor) -> torch.Tensor:
+                 gmm: Optional[GMMPrior], x: torch.Tensor) -> torch.Tensor:
     """(B,) scalar fitting energy, the quantity the reference minimizes."""
     t = energy_terms(spec, assets, cam, obs, weights, vposer_w, gmm, x)
     return (t["joint"] + t["joint3d"] + t["pose_prior"] + t["shape_prior"]
             + t["angle_prior"] + t["collision"] + t["extra_prior"])
 
 
+def _joints3d_rows(spec: EnergySpec, obs: Observations,
+                   weights: StageWeights,
+                   joints: torch.Tensor) -> torch.Tensor:
+    """3D-joint rows (B, K*3) from the mapped joints."""
+    w3 = obs.conf3d[..., None] * _col(weights.data, 2)
+    return (w3 * gmof_residual(obs.gt3d - joints, spec.rho)).reshape(
+        joints.shape[0], -1)
+
+
 def _data_rows_from_joints(spec: EnergySpec, cam: Camera,
                            obs: Observations, weights: StageWeights,
                            joints: torch.Tensor) -> torch.Tensor:
-    """2D data rows (B, V*K*2) from the mapped joints."""
+    """Data rows from the mapped joints: 2D (B, V*K*2), then the 3D rows
+    (K*3) when the term is on."""
     w = _data_weights(spec, obs) * _col(weights.data, 2)
     e = gmof_residual(obs.gt2d - _project(cam, joints), spec.rho)
-    return (w[..., None] * e).reshape(joints.shape[0], -1)
+    rows = [(w[..., None] * e).reshape(joints.shape[0], -1)]
+    if _use_3d(spec, obs):
+        rows.append(_joints3d_rows(spec, obs, weights, joints))
+    return torch.cat(rows, dim=-1)
+
+
+def joints3d_residuals(spec: EnergySpec, assets: SMPLAssets,
+                       obs: Observations, weights: StageWeights,
+                       vposer_w: Optional[vposer_lib.VPoserWeights],
+                       x: torch.Tensor) -> torch.Tensor:
+    """Only the 3D-joint rows (B, K*3); (B, 0) when the term is off."""
+    if not _use_3d(spec, obs):
+        return x.new_zeros((x.shape[0], 0))
+    joints = _forward(spec, assets, vposer_w, x)[4]
+    return _joints3d_rows(spec, obs, weights, joints)
 
 
 def _prior_rows_core(spec: EnergySpec, weights: StageWeights,
-                     z: Optional[torch.Tensor], body_pose: torch.Tensor,
+                     gmm: Optional[GMMPrior], z: Optional[torch.Tensor],
+                     body_pose: torch.Tensor,
                      betas: torch.Tensor) -> torch.Tensor:
     """Prior rows (B, r) as a function of (z, body_pose, betas)."""
     rows = []
@@ -272,7 +310,15 @@ def _prior_rows_core(spec: EnergySpec, weights: StageWeights,
     if spec.use_vposer:
         rows.append(pose * z)
     else:
-        rows.append(pose * body_pose)
+        if spec.prior_type == "gmm":
+            # Gate (`fitting.py:334-335`): above 5e4 the whole term is
+            # dropped, rows too, so sum(r^2) keeps matching total_energy;
+            # the gate itself carries no derivative.
+            base = gmm.merged_nll(body_pose) * weights.pose ** 2
+            gate = (base <= 5e4).to(body_pose.dtype)[:, None]
+            rows.append(gate * pose * gmm.residuals(body_pose))
+        else:
+            rows.append(pose * body_pose)
         rows.append(4.0 * pose * body_pose)
     if not spec.fix_shape:
         rows.append(_col(weights.shape, 1) * betas)
@@ -291,11 +337,14 @@ def _prior_rows_core(spec: EnergySpec, weights: StageWeights,
 def residuals(spec: EnergySpec, assets: SMPLAssets, cam: Camera,
               obs: Observations, weights: StageWeights,
               vposer_w: Optional[vposer_lib.VPoserWeights],
-              gmm, x: torch.Tensor, grids=None) -> torch.Tensor:
-    """Residual rows (B, m) with sum(r^2, -1) == total_energy: the 2D
-    data rows (V*K*2, smooth `gmof_residual`), the prior rows and, when
-    the collision term is on this stage, one row w * s (the frame's one
-    body sampled in its own field, `energy.py:439-447` with P = 1).
+              gmm: Optional[GMMPrior], x: torch.Tensor,
+              grids=None) -> torch.Tensor:
+    """Residual rows (B, m) with sum(r^2, -1) == total_energy (the GMM's
+    -log w offset aside, which enters the scalar only): the 2D data rows
+    (V*K*2, smooth `gmof_residual`), the 3D-joint rows (K*3) when that
+    term is on, the prior rows and, when the collision term is on this
+    stage, one row w * s (the frame's one body sampled in its own field,
+    `energy.py:439-447` with P = 1).
 
     `grids` (from `collision_grids`) holds the fields fixed; without it
     the body is voxelized at x, which needs x to be a plain tensor.
@@ -304,7 +353,8 @@ def residuals(spec: EnergySpec, assets: SMPLAssets, cam: Camera,
     params, z, body_pose, verts, joints = _forward(
         spec, assets, vposer_w, x, need_verts=_coll_on(spec, weights))
     rows = [_data_rows_from_joints(spec, cam, obs, weights, joints),
-            _prior_rows_core(spec, weights, z, body_pose, params.betas)]
+            _prior_rows_core(spec, weights, gmm, z, body_pose,
+                             params.betas)]
     if _coll_on(spec, weights):
         if grids is None:
             grids = sdf_ops.person_grids(verts[:, None], assets.faces,
@@ -336,14 +386,14 @@ def analytic_jac_ok(spec: EnergySpec, assets: SMPLAssets) -> bool:
 def residual_jacobian(spec: EnergySpec, assets: SMPLAssets, cam: Camera,
                       obs: Observations, weights: StageWeights,
                       vposer_w: Optional[vposer_lib.VPoserWeights],
-                      gmm, x: torch.Tensor
+                      gmm: Optional[GMMPrior], x: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(r (B, m), J (B, m, n)) == (`residuals(x)`, its Jacobian).
 
     The deep part comes in closed form from the joint-Jacobian and
     VPoser-tail kernels (`_analytic_core`); only the shallow row maps
-    (projection + GMoF, prior rows) are differentiated, by forward mode
-    over the n tangent columns.
+    (projection + GMoF, the 3D-joint rows, prior rows) are
+    differentiated, by forward mode over the n tangent columns.
     """
     check_ported(spec)
     if _coll_on(spec, weights):
@@ -355,7 +405,7 @@ def residual_jacobian(spec: EnergySpec, assets: SMPLAssets, cam: Camera,
     def rows(j, zz, bp, be):
         return torch.cat([
             _data_rows_from_joints(spec, cam, obs, weights, j),
-            _prior_rows_core(spec, weights, zz, bp, be)], dim=-1)
+            _prior_rows_core(spec, weights, gmm, zz, bp, be)], dim=-1)
 
     primals = (joints, z_in, body_pose, betas)
     r = rows(*primals)

@@ -3,13 +3,16 @@
 Rest-pose annotation joints -> DLT triangulation of the 2D detections
 (several live views) or the torso-height depth heuristic (one view) ->
 Umeyama similarity on the 4 torso joints -> (global_orient, transl,
-scale); betas and the VPoser latent start at zero.  The sequence
-warm-start is not ported yet.
+scale); betas and the VPoser latent start at zero.  Annotated 3D joints,
+where given, replace the triangulation.  In a sequence, `warm_start`
+picks per frame between the previous frame's solution and the fresh
+guess.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -69,11 +72,14 @@ def _single_view_depth(cam: Camera, rest: torch.Tensor,
 def init_guess(assets: SMPLAssets, cam: Camera, pixels: torch.Tensor,
                conf: torch.Tensor, view_mask: torch.Tensor,
                est_scale: bool = True, fixed_scale: float = 1.0,
+               gt3d: Optional[torch.Tensor] = None,
                use_torso: bool = True) -> InitGuess:
     """Initial parameters for a batch of frames.
 
     Args:
       pixels: (B, V, K, 2) 2D keypoints; conf: (B, V, K); view_mask: (B, V).
+      gt3d: optional (B, K, 3) annotated 3D joints, used in place of the
+        triangulation (`init_guess.py:85-86`).
     """
     B = pixels.shape[0]
     dtype, device = pixels.dtype, pixels.device
@@ -84,6 +90,8 @@ def init_guess(assets: SMPLAssets, cam: Camera, pixels: torch.Tensor,
     tri = triangulate(cam, pixels, conf, view_mask)
     single = _single_view_depth(cam, rest, pixels, view_mask, torso)
     joints3d = torch.where((n_views > 1)[:, None, None], tri, single)
+    if gt3d is not None:
+        joints3d = gt3d
 
     if use_torso:
         src, dst = rest[torso], joints3d[:, torso]
@@ -100,3 +108,24 @@ def init_guess(assets: SMPLAssets, cam: Camera, pixels: torch.Tensor,
     params = SMPLParams(betas=zeros(assets.num_betas), global_orient=orient,
                         body_pose=zeros(69), transl=trans, scale=scale)
     return InitGuess(params=params, z=zeros(LATENT_DIM), joints3d=joints3d)
+
+
+def warm_start(prev_params: SMPLParams, prev_z: torch.Tensor,
+               prev_loss: torch.Tensor, fresh: InitGuess,
+               loss_threshold: float = 5000.0) -> InitGuess:
+    """Sequence warm start (`load_init`, `init_guess.py:137-166`): each
+    frame reuses the previous frame's solution unless that frame's final
+    loss (B,) exceeded the threshold, where the fresh guess wins.  The
+    choice is per frame, so one batch can mix both."""
+    use_prev = prev_loss <= loss_threshold
+
+    def pick(a, b):
+        u = use_prev.reshape((-1,) + (1,) * (a.dim() - 1))
+        return torch.where(u, a, b)
+
+    params = SMPLParams(**{
+        f.name: pick(getattr(prev_params, f.name),
+                     getattr(fresh.params, f.name))
+        for f in dataclasses.fields(SMPLParams)})
+    return InitGuess(params=params, z=pick(prev_z, fresh.z),
+                     joints3d=fresh.joints3d)

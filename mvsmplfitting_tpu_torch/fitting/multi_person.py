@@ -285,13 +285,12 @@ def fit_people(cfg: FitConfig, assets, cam: Camera,
     """
     if sdf_engine not in ("points", "grid"):
         raise ValueError(f"unknown sdf_engine {sdf_engine!r}")
-    if gmm is not None:
-        raise NotImplementedError("the GMM pose prior is not ported yet")
     dev = resolve_device(device)
     assets = assets.to(dev)
     cam = cam.to(dev)
     obs_people = obs_people.to(dev)
     vposer_w = None if vposer_w is None else vposer_w.to(dev)
+    gmm = None if gmm is None else gmm.to(dev)
     spec = cfg.spec
     if refine_collision is None:
         refine_collision = spec.interpenetration
@@ -303,7 +302,8 @@ def fit_people(cfg: FitConfig, assets, cam: Camera,
     guess = init_guess(assets, cam, obs_people.gt2d, obs_people.conf,
                        obs_people.view_mask, est_scale=est_scale)
     results = fit_frame(solo_cfg, assets, cam, obs_people, guess.params,
-                        guess.z, vposer_w=vposer_w, img_height=img_height)
+                        guess.z, vposer_w=vposer_w, gmm=gmm,
+                        img_height=img_height)
     if not refine_collision:
         return results, torch.zeros((P,), device=dev)
 

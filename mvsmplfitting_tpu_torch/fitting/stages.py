@@ -1,11 +1,16 @@
 """Staged annealing fit over a batch of frames (port of
-`fitting/stages.py` for ``solver="lm"``).
+`fitting/stages.py`).
 
 The reference's 4 weight stages (`cfg_files/fit_smpl.yaml:40-59`) run in
-order on the same parameter vector; each is one batched `lm_fit`, or,
-with `FitConfig.fused`, all of them run in one loop (`lm_fit_staged`)
-where each frame moves to the next stage on its own.  Not ported yet:
-the L-BFGS and gradient solvers and the sequence schedule.
+order on the same parameter vector.  Each is one batched solve: `lm_fit`
+(the primary solver), the strong-Wolfe L-BFGS parity solver
+(`lbfgs_fit`) or a first-order one (`gradient_fit`); with
+`FitConfig.fused` the LM stages run in one loop (`lm_fit_staged`) where
+each frame moves to the next stage on its own.  The L-BFGS and
+first-order solvers minimize `total_energy`, with the gradient from one
+reverse pass over the frames' energies summed (the frames are
+independent, so this is JAX's per-frame `value_and_grad`).  In sequence
+mode (`is_seq`) a frame after the first skips stages 0-1.
 
 A stage with the collision term on takes the AD Jacobian, as in JAX
 (`stages.py:116-117`).  The voxelizer is a ctypes kernel on the card and
@@ -28,6 +33,8 @@ from ..models.smpl import SMPLAssets, SMPLParams
 from ..models.vposer import VPoserWeights
 from . import energy as E
 from .energy import EnergySpec, Observations, StageWeights
+from .gradient import GradientOptions, gradient_fit
+from .lbfgs import LBFGSOptions, lbfgs_fit
 from .lm import LMOptions, ad_jacobian, lm_fit, lm_fit_staged, stack_stages
 
 # Demo schedule: per-stage (body_pose_weight, shape_weight,
@@ -46,11 +53,16 @@ class FitConfig:
     shape_weights: Tuple[float, ...] = DEFAULT_SHAPE_WEIGHTS
     coll_weights: Tuple[float, ...] = DEFAULT_COLL_WEIGHTS
     lm: LMOptions = LMOptions()
+    lbfgs: LBFGSOptions = LBFGSOptions()
+    grad: GradientOptions = GradientOptions()
     # All stages in one LM loop (`lm_fit_staged`); the same math as the
     # stage-by-stage loops (JAX `stages.py:66-71`).  Off by default, as
     # in JAX; it falls back to the stage loops where stages mix collision
-    # on and off.
+    # on and off, and is LM only.
     fused: bool = False
+    # Sequence mode: non-start frames skip stages 0-1 and run stage 2 at
+    # 0.15x the pose weight (`non_linear_solver.py:156-162`).
+    is_seq: bool = False
 
 
 @dataclasses.dataclass
@@ -60,17 +72,35 @@ class FitResult:
     body_pose: torch.Tensor     # (B, 69) decoded / direct body pose
     loss: torch.Tensor          # (B,) final energy
     stage_losses: torch.Tensor  # (B, num_stages)
-    lm_iters: torch.Tensor      # (B, num_stages) LM iterations per stage
+    # (B, num_stages) the solver's iterations per stage, whichever solver
+    # ran it: LM iterations, L-BFGS iterations or first-order steps.
+    lm_iters: torch.Tensor
 
 
-def default_stages(cfg: FitConfig, img_height: torch.Tensor
-                   ) -> Sequence[StageWeights]:
-    """Per-stage weights; img_height (B,) gives the per-frame data weight."""
+def frame_heights(img_height, x: torch.Tensor) -> torch.Tensor:
+    """The image height per frame (B,) of x (B, n), from a scalar or (B,)."""
+    h = torch.as_tensor(img_height, dtype=torch.float32, device=x.device)
+    return h.expand(x.shape[0]) if h.dim() == 0 else h
+
+
+def default_stages(cfg: FitConfig, img_height: torch.Tensor,
+                   seq_start: bool = True) -> Sequence[StageWeights]:
+    """Per-stage weights; img_height (B,) gives the per-frame data weight.
+    In sequence mode a frame after the first (``seq_start=False``) skips
+    stages 0-1 and runs stage 2 at 0.15x the pose weight."""
     data_w = 500.0 / img_height.to(torch.float32)
-    return [StageWeights.make(data=data_w, pose=pw, shape=sw, coll=cw,
-                              device=img_height.device)
-            for pw, sw, cw in zip(cfg.pose_weights, cfg.shape_weights,
-                                  cfg.coll_weights)]
+    stages = []
+    for i, (pw, sw, cw) in enumerate(zip(cfg.pose_weights,
+                                         cfg.shape_weights,
+                                         cfg.coll_weights)):
+        if cfg.is_seq and not seq_start:
+            if i < 2:
+                continue
+            if i == 2:
+                pw = pw * 0.15
+        stages.append(StageWeights.make(data=data_w, pose=pw, shape=sw,
+                                        coll=cw, device=img_height.device))
+    return stages
 
 
 def stage_jacobian(cfg: FitConfig, assets: SMPLAssets, cam: Camera,
@@ -101,22 +131,40 @@ def run_stage(cfg: FitConfig, assets: SMPLAssets, cam: Camera,
               obs: Observations, weights: StageWeights,
               vposer_w: Optional[VPoserWeights], gmm, x: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One annealing stage from x; returns (x_new, energy, LM iterations)."""
-    if cfg.solver != "lm":
-        raise NotImplementedError(
-            f"solver {cfg.solver!r} is not ported yet (only 'lm')")
+    """One annealing stage from x; returns (x_new, energy, the solver's
+    iterations) per frame."""
     spec = cfg.spec
     mask = E.free_mask(spec, x.device)
 
-    def res_fn(xv):
-        return E.residuals(spec, assets, cam, obs, weights, vposer_w, gmm,
-                           xv)
+    if cfg.solver == "lm":
+        def res_fn(xv):
+            return E.residuals(spec, assets, cam, obs, weights, vposer_w,
+                               gmm, xv)
 
-    jac_fn = stage_jacobian(cfg, assets, cam, obs, weights, vposer_w, gmm)
-    x_new, _, iters = lm_fit(res_fn, x, mask, cfg.lm, jac_fn=jac_fn)
-    loss = E.total_energy(spec, assets, cam, obs, weights, vposer_w, gmm,
-                          x_new)
-    return x_new, loss, iters
+        jac_fn = stage_jacobian(cfg, assets, cam, obs, weights, vposer_w,
+                                gmm)
+        x_new, _, iters = lm_fit(res_fn, x, mask, cfg.lm, jac_fn=jac_fn)
+        # The scalar energy (with non-LSQ constants such as the GMM's
+        # -log w offset), comparable across solvers.
+        loss = E.total_energy(spec, assets, cam, obs, weights, vposer_w,
+                              gmm, x_new)
+        return x_new, loss, iters
+
+    def fg(xv):
+        xv = xv.detach().requires_grad_(True)
+        with torch.enable_grad():
+            e = E.total_energy(spec, assets, cam, obs, weights, vposer_w,
+                               gmm, xv)
+            (g,) = torch.autograd.grad(e.sum(), xv)
+        return e.detach(), g
+
+    if cfg.solver in ("adam", "rmsprop", "sgd"):
+        opts = dataclasses.replace(cfg.grad, optim_type=cfg.solver)
+        return gradient_fit(fg, x, mask, opts)
+    if cfg.solver in ("lbfgs", "lbfgsls"):
+        x_new, loss, iters, _ = lbfgs_fit(fg, x, mask, cfg.lbfgs)
+        return x_new, loss, iters
+    raise ValueError(f"unknown solver {cfg.solver!r}")
 
 
 def _fit_fused(cfg: FitConfig, assets: SMPLAssets, cam: Camera,
@@ -150,15 +198,13 @@ def fit_frame(cfg: FitConfig, assets: SMPLAssets, cam: Camera,
               obs: Observations, init_params: SMPLParams,
               init_z: torch.Tensor,
               vposer_w: Optional[VPoserWeights] = None, gmm=None,
-              img_height=1080.0) -> FitResult:
-    """Fit a batch of frames through the full annealing schedule."""
+              img_height=1080.0, seq_start: bool = True) -> FitResult:
+    """Fit a batch of frames through the full annealing schedule (the
+    sequence schedule for ``seq_start=False`` under `FitConfig.is_seq`)."""
     spec = cfg.spec
     x = E.pack(spec, init_params, init_z if spec.use_vposer else None)
     B = x.shape[0]
-    h = torch.as_tensor(img_height, dtype=torch.float32, device=x.device)
-    h = h.expand(B) if h.dim() == 0 else h
-
-    stages = default_stages(cfg, h)
+    stages = default_stages(cfg, frame_heights(img_height, x), seq_start)
     # With the collision term off, coll_on is dead and must not block
     # fusing (JAX `stages.py:161-170`).
     use_fused = (cfg.fused and cfg.solver == "lm"

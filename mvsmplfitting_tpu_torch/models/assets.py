@@ -1,13 +1,18 @@
-"""Synthetic SMPL assets for tests and benchmarks (port of the smpl /
-smpllsp arm of `models/assets.py:synthetic_smpl`).
+"""SMPL asset loading: official pkl files, npz caches and synthetic
+models (port of the smpl / smpllsp arms of `models/assets.py`).
 
-The geometry is generated by numpy seeded from `seed`, with the same
-draws in the same order as the JAX package, so the arrays are equal.
-Loading the official SMPL pickles (`load_smpl_pkl`) is not ported yet.
+The official SMPL pickles hold chumpy arrays and scipy sparse matrices;
+chumpy is no dependency, so the loader unpickles with a stub class and
+keeps plain numpy arrays (the data the reference reads at
+`body_models_scale.py:178-180`).  The synthetic model's geometry is
+generated by numpy seeded from `seed`, with the same draws in the same
+order as the JAX package, so the arrays are equal.
 """
 
 from __future__ import annotations
 
+import os
+import pickle
 from typing import Optional
 
 import numpy as np
@@ -19,6 +24,40 @@ from .smpl import SMPLAssets
 
 NUM_VERTS = 6890
 NUM_FACES = 13776
+
+
+class _ChumpyStub:
+    """Stand-in for a chumpy array: keeps its state, `r` its values."""
+
+    def __setstate__(self, state):
+        self.__dict__.update(state if isinstance(state, dict) else {})
+
+    @property
+    def r(self):
+        return np.asarray(self.__dict__.get("x"))
+
+
+class _StubUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module.startswith("chumpy"):
+            return _ChumpyStub
+        return super().find_class(module, name)
+
+
+def _to_dense(x) -> np.ndarray:
+    if isinstance(x, _ChumpyStub):
+        x = x.r
+    if hasattr(x, "todense"):  # scipy sparse
+        x = np.asarray(x.todense())
+    return np.asarray(x)
+
+
+def load_smpl_pkl(path: str) -> dict:
+    """Unpickle an official SMPL model file into plain numpy arrays."""
+    with open(path, "rb") as f:
+        data = _StubUnpickler(f, encoding="latin1").load()
+    return {k: _to_dense(v) if not isinstance(v, (str, int, float)) else v
+            for k, v in data.items()}
 
 
 def _build(raw: dict, model_type: str, gender: str,
@@ -41,13 +80,59 @@ def _build(raw: dict, model_type: str, gender: str,
         v_template=t(raw["v_template"]),
         shapedirs=t(full_shapedirs[..., :J.NUM_BETAS]),
         posedirs=t(posedirs),
-        j_regressor=t(raw["J_regressor"]),
+        j_regressor=t(_to_dense(raw["J_regressor"])),
         lbs_weights=t(raw["weights"]),
         faces=idx(raw["f"]),
         extra_joint_ids=idx(J.extra_joint_ids("smplh", False)),
         joint_map=idx(J.model_to_annotation(model_type, fmt)),
         lsp_regressor=None if lsp_regressor is None else t(lsp_regressor),
         parents=parents, model_type=model_type, gender=gender)
+
+
+def load_smpl(model_folder: str, model_type: str = "smpl",
+              gender: str = "neutral",
+              lsp_regressor_path: Optional[str] = None,
+              pose_format: Optional[str] = None,
+              device: DeviceLike = None) -> SMPLAssets:
+    """Load smpl / smpllsp assets the way the reference resolves them.
+
+    `model_folder` is the directory holding `smpl/SMPL_<GENDER>.pkl` (or
+    that file's own directory; smpllsp uses the smpl files,
+    `body_models_scale.py:82-87`), or a direct path to a pkl/npz.  For
+    smpllsp an LSP 14-joint regressor npz (key `joint_regressor`,
+    (14, V)) is required.
+    """
+    if model_type not in ("smpl", "smpllsp"):
+        J.parents_for_model(model_type)   # raises for SMPL-H/X
+    dev = resolve_device(device)
+    path = model_folder
+    if os.path.isdir(path):
+        sub = os.path.join(path, "smpl")
+        if os.path.isdir(sub):
+            path = sub
+        base = os.path.join(path, f"SMPL_{gender.upper()}")
+        for ext in (".pkl", ".npz"):
+            if os.path.exists(base + ext):
+                path = base + ext
+                break
+        else:
+            path = base + ".pkl"
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"smpl model not found: {path}")
+    if path.endswith(".npz"):
+        with np.load(path, allow_pickle=True) as data:
+            raw = {k: data[k] for k in data.files}
+        raw = {k: (v.item() if v.dtype == object and v.shape == () else v)
+               for k, v in raw.items()}
+    else:
+        raw = load_smpl_pkl(path)
+
+    lsp = None
+    if model_type == "smpllsp":
+        if lsp_regressor_path is None:
+            raise ValueError("smpllsp requires lsp_regressor_path")
+        lsp = np.load(lsp_regressor_path)["joint_regressor"]
+    return _build(raw, model_type, gender, lsp, pose_format, dev)
 
 
 def synthetic_smpl(model_type: str = "smpl", seed: int = 0,

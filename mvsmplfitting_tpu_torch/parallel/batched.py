@@ -30,17 +30,18 @@ def batched_fit_frames(cfg: FitConfig, assets, cam: Camera,
                        est_scale: bool = True,
                        device: DeviceLike = None) -> FitResult:
     """Initialize and fit a whole batch of frames on `device` (CUDA
-    unless ``device="cpu"``): triangulation + umeyama, then the staged
-    LM anneal, all batched over frames."""
+    unless ``device="cpu"``): triangulation + umeyama (or the annotated
+    3D joints, with `spec.use_3d`), then the staged anneal, all batched
+    over frames."""
     dev = resolve_device(device)
-    if gmm is not None:
-        raise NotImplementedError("the GMM pose prior is not ported yet")
     assets = assets.to(dev)
     cam = cam.to(dev)
     obs = batch.obs.to(dev)
     vposer_w = None if vposer_w is None else vposer_w.to(dev)
+    gmm = None if gmm is None else gmm.to(dev)
     img_height = batch.img_height.to(dev)
     guess = init_guess(assets, cam, obs.gt2d, obs.conf, obs.view_mask,
-                       est_scale=est_scale)
+                       est_scale=est_scale,
+                       gt3d=obs.gt3d if cfg.spec.use_3d else None)
     return fit_frame(cfg, assets, cam, obs, guess.params, guess.z,
-                     vposer_w=vposer_w, img_height=img_height)
+                     vposer_w=vposer_w, gmm=gmm, img_height=img_height)

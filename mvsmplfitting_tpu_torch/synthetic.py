@@ -5,13 +5,14 @@ Six cameras (by default) orbit the origin at radius 4 and height 0.3,
 all looking at the origin; every frame draws its own true pose latent,
 shape, orientation, translation and scale from numpy seeded with `seed`,
 in the same order as the JAX function, and its observations are the
-exact projections of the synthetic body's joints.
+exact projections of the synthetic body's joints.  `make_sequence`
+moves each frame's truth on by a seeded drift per time step.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -64,37 +65,66 @@ def true_params(num_frames: int, seed: int
             {k: np.asarray(v, np.float32) for k, v in cols.items()})
 
 
-def make_problem(num_views: int = 6, num_frames: int = 1, seed: int = 0,
-                 device: DeviceLike = None
-                 ) -> Tuple[SMPLAssets, vposer_lib.VPoserWeights, Camera,
-                            Observations]:
-    """(assets with the reduced joint model, VPoser weights, cameras,
-    observations (num_frames, V, K, ...)) on `device`."""
-    dev = resolve_device(device)
-    assets = with_joint_model(synthetic_smpl(device=dev))
-    vposer_w = vposer_lib.load_npz(VPOSER_NPZ, device=dev)
-    cam = orbit_cameras(num_views, dev)
-
-    z_np, cols = true_params(num_frames, seed)
-    B = z_np.shape[0]
+def observe(assets: SMPLAssets, vposer_w: vposer_lib.VPoserWeights,
+            cam: Camera, z: np.ndarray, cols: dict) -> Observations:
+    """Exact projections (B, V, K, 2) of the bodies with latents z (B, 32)
+    and the parameters `cols`, all views live, unit confidences."""
+    dev = cam.rotation.device
 
     def t(a):
         return torch.as_tensor(a, dtype=torch.float32, device=dev)
 
+    B, V = z.shape[0], cam.rotation.shape[0]
     true = SMPLParams(betas=t(cols["betas"]),
                       global_orient=t(cols["global_orient"]),
                       body_pose=torch.zeros((B, 69), device=dev),
                       transl=t(cols["transl"]), scale=t(cols["scale"]))
-    body_pose = vposer_lib.decode(vposer_w, t(z_np))
+    body_pose = vposer_lib.decode(vposer_w, t(z))
     _, joints = smpl_forward(assets, true, body_pose)
     gt2d = project_points(cam, joints).transpose(0, 1).contiguous()
     K = gt2d.shape[2]
-    obs = Observations(
+    return Observations(
         gt2d=gt2d,
-        conf=torch.ones((B, num_views, K), device=dev),
-        view_mask=torch.ones((B, num_views), device=dev),
+        conf=torch.ones((B, V, K), device=dev),
+        view_mask=torch.ones((B, V), device=dev),
         joint_weights=torch.ones((B, K), device=dev))
-    return assets, vposer_w, cam, obs
+
+
+def make_problem(num_views: int = 6, num_frames: int = 1, seed: int = 0,
+                 device: DeviceLike = None, model_type: str = "smpl"
+                 ) -> Tuple[SMPLAssets, vposer_lib.VPoserWeights, Camera,
+                            Observations]:
+    """(assets with the reduced joint model, VPoser weights, cameras,
+    observations (num_frames, V, K, ...)) on `device`; smpl (K=17, coco)
+    or smpllsp (K=14, the LSP regressor)."""
+    dev = resolve_device(device)
+    assets = with_joint_model(synthetic_smpl(model_type, device=dev))
+    vposer_w = vposer_lib.load_npz(VPOSER_NPZ, device=dev)
+    cam = orbit_cameras(num_views, dev)
+    z_np, cols = true_params(num_frames, seed)
+    return assets, vposer_w, cam, observe(assets, vposer_w, cam, z_np, cols)
+
+
+def make_sequence(num_views: int = 6, num_seqs: int = 1, steps: int = 2,
+                  seed: int = 0, device: DeviceLike = None,
+                  model_type: str = "smpl"
+                  ) -> Tuple[SMPLAssets, vposer_lib.VPoserWeights, Camera,
+                             List[Observations]]:
+    """`num_seqs` sequences in lockstep: step 0 is `make_problem`'s
+    frames; each later step moves every sequence's truth by a seeded
+    drift (latent += N(0, 0.05), translation += N(0, 0.0115) per axis,
+    about 2 cm).  Returns the observations of each step."""
+    assets, vposer_w, cam, obs = make_problem(num_views, num_seqs, seed,
+                                              device, model_type)
+    z, cols = true_params(num_seqs, seed)
+    rng = np.random.default_rng(seed + 1)
+    out = [obs]
+    for _ in range(1, steps):
+        z = (z + 0.05 * rng.standard_normal(z.shape)).astype(np.float32)
+        step = 0.0115 * rng.standard_normal(cols["transl"].shape)
+        cols = dict(cols, transl=(cols["transl"] + step).astype(np.float32))
+        out.append(observe(assets, vposer_w, cam, z, cols))
+    return assets, vposer_w, cam, out
 
 
 def make_people_problem(dx0: float = 0.2, num_views: int = 6,

@@ -14,8 +14,10 @@ atol 3e-4 max|D|.  The joint-Jacobian and tail kernels run at B=1, 130
 tile is covered) and 512 (the batched fit's batch).  The SDF
 voxelizers are compared bitwise (see `test_sdf_kernels_on_card`).  The
 points engine's field (plain PyTorch on both devices) holds the CPU's
-inside set at atol 1e-5, and the fused fit the CPU's stage losses at
-rtol 1e-3.
+inside set at atol 1e-5, and the fused fit and an L-BFGS stage the
+CPU's stage losses at rtol 1e-3.  The no-VPoser `residual_jacobian`
+(GMM prior, 86 columns) holds its plain-kernel twin at RTOL and the
+joint-Jacobian test's rtol 2e-4 on J.
 """
 
 import numpy as np
@@ -173,5 +175,67 @@ def test_fused_fit_on_card(cuda_device):
             cfg, assets, cam, BatchedFitInputs(obs, torch.full(
                 (2,), 1080.0, device=d)), vposer_w=vw, device=d)
         assert res.lm_iters.tolist() == [[3] * 4] * 2
+        losses.append(res.stage_losses.cpu())
+    torch.testing.assert_close(losses[0], losses[1], rtol=1e-3, atol=0.0)
+
+
+@pytest.mark.cuda
+def test_no_vposer_residual_jacobian_on_card(cuda_device, monkeypatch):
+    """The GMM-prior energy without VPoser (86 unknowns: the joint
+    kernel's pose columns unchained): `residual_jacobian` with the kernel
+    against the same call with the kernel's plain version, on the card,
+    at the kernel tolerances scaled to the largest entry."""
+    from mvsmplfitting_tpu_torch.fitting import energy as E
+    from mvsmplfitting_tpu_torch.models.priors import random_gmm
+    from mvsmplfitting_tpu_torch.synthetic import make_problem
+
+    assets, vw, cam, obs = make_problem(6, 4, seed=2, device=cuda_device)
+    gmm = random_gmm(device=cuda_device)
+    spec = E.EnergySpec(use_vposer=False, prior_type="gmm")
+    w = E.StageWeights.make(data=torch.full((4,), 500 / 1080.0,
+                                            device=cuda_device),
+                            pose=4.78, shape=5.0, device=cuda_device)
+    rng = np.random.default_rng(6)
+    x = rng.normal(0, 0.2, (4, 86)).astype(np.float32)
+    x[:, 85] = 1.0
+    x = torch.from_numpy(x).to(cuda_device)
+    jb, vb = JK.LAUNCHES, VK.LAUNCHES
+    r1, J1 = E.residual_jacobian(spec, assets, cam, obs, w, None, gmm, x)
+    torch.cuda.synchronize()
+    assert (JK.LAUNCHES - jb, VK.LAUNCHES - vb) == (1, 0)
+    assert J1.shape[-1] == 86
+    monkeypatch.setattr(JK, "joint_jacobian_batched",
+                        JK.joint_jacobian_plain)
+    r0, J0 = E.residual_jacobian(spec, assets, cam, obs, w, None, gmm, x)
+    torch.testing.assert_close(r1, r0, rtol=RTOL,
+                               atol=ATOL * r0.abs().max().item())
+    torch.testing.assert_close(J1, J0, rtol=2e-4,
+                               atol=2e-4 * J0.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_lbfgs_stage_on_card(cuda_device):
+    """One strong-Wolfe L-BFGS stage (3 iterations) on 2 frames: the card
+    against the CPU, stage losses at rtol 1e-3; no kernel launches (the
+    gradient is one reverse pass through the plain joint model)."""
+    from mvsmplfitting_tpu_torch.fitting.lbfgs import LBFGSOptions
+    from mvsmplfitting_tpu_torch.fitting.stages import FitConfig
+    from mvsmplfitting_tpu_torch.parallel.batched import (
+        BatchedFitInputs, batched_fit_frames)
+    from mvsmplfitting_tpu_torch.synthetic import make_problem
+
+    cfg = FitConfig(solver="lbfgs", pose_weights=(57.4,),
+                    shape_weights=(10.0,), coll_weights=(0.0,),
+                    lbfgs=LBFGSOptions(max_iters=3))
+    losses = []
+    for d in (cuda_device, torch.device("cpu")):
+        assets, vw, cam, obs = make_problem(6, 2, seed=1, device=d,
+                                            model_type="smpllsp")
+        jb, vb = JK.LAUNCHES, VK.LAUNCHES
+        res = batched_fit_frames(
+            cfg, assets, cam, BatchedFitInputs(obs, torch.full(
+                (2,), 1080.0, device=d)), vposer_w=vw, device=d)
+        assert (JK.LAUNCHES, VK.LAUNCHES) == (jb, vb)
+        assert res.lm_iters.tolist() == [[3]] * 2
         losses.append(res.stage_losses.cpu())
     torch.testing.assert_close(losses[0], losses[1], rtol=1e-3, atol=0.0)

@@ -15,8 +15,6 @@ Tolerances and why:
 - batch vs single frame on a row-independent problem: rtol 1e-6.
 """
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,42 +27,21 @@ from mvsmplfitting_tpu.fitting import lm as JLM
 from mvsmplfitting_tpu.fitting.initialize import init_guess as jinit_guess
 from mvsmplfitting_tpu.fitting.stages import FitConfig as JFitConfig
 from mvsmplfitting_tpu.fitting.stages import fit_frame as jfit_frame
-from mvsmplfitting_tpu.models.camera import Camera as JCamera
-from mvsmplfitting_tpu_torch import convert, synthetic
 from mvsmplfitting_tpu_torch.fitting import energy as TE
 from mvsmplfitting_tpu_torch.fitting import lm as TLM
 from mvsmplfitting_tpu_torch.fitting.stages import FitConfig
 from mvsmplfitting_tpu_torch.parallel.batched import (BatchedFitInputs,
                                                       batched_fit_frames)
 
-from torch_port_helpers import arrays, jax_assets, vposer_pair
+from torch_port_helpers import fit_problem
 
 B = 2
 
 
 @pytest.fixture(scope="module")
 def problem():
-    """Two distinct synthetic frames seen by 6 views, as JAX structs, and
-    the same values carried into the port by `convert`.  (The pixels come
-    from the port's `synthetic.make_problem`; the JAX assets carry the
-    port-built joint model, see torch_port_helpers.)"""
-    _, _, tc, to = synthetic.make_problem(6, B, seed=0, device="cpu")
-    ja = jax_assets("smpl")
-    jw, _ = vposer_pair()
-    jc = JCamera(**{f: jnp.asarray(getattr(tc, f).numpy())
-                    for f in ("rotation", "translation", "focal", "center")})
-    jo = JE.Observations(**{f: jnp.asarray(getattr(to, f).numpy())
-                            for f in ("gt2d", "conf", "view_mask",
-                                      "joint_weights")})
-    ta = dataclasses.replace(
-        convert.smpl_assets(arrays(ja), ja.parents, ja.model_type,
-                            device="cpu"),
-        joint_model=convert.joint_model(arrays(ja.joint_model), ja.parents,
-                                        ja.model_type, device="cpu"))
-    return dict(ta=ta, tc=convert.camera(arrays(jc), device="cpu"),
-                to=convert.observations(arrays(jo), device="cpu"),
-                tw=convert.vposer_weights(arrays(jw), device="cpu"),
-                ja=ja, jc=jc, jo=jo, jw=jw)
+    """Two distinct synthetic frames seen by 6 views, in both packages."""
+    return fit_problem(B)
 
 
 def _x(rng):

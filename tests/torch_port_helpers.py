@@ -66,6 +66,44 @@ def vposer_pair():
     return jv.load_npz(VPOSER_NPZ), tv.load_npz(VPOSER_NPZ, device="cpu")
 
 
+def jax_observations(obs):
+    """The JAX `Observations` holding a port `Observations`' values."""
+    import jax.numpy as jnp
+
+    from mvsmplfitting_tpu.fitting.energy import Observations
+    return Observations(**{
+        f.name: (None if getattr(obs, f.name) is None
+                 else jnp.asarray(getattr(obs, f.name).numpy()))
+        for f in dataclasses.fields(obs)})
+
+
+def fit_problem(B, seed=0, model_type="smpl"):
+    """B distinct synthetic frames seen by 6 views, as JAX structs, and
+    the same values carried into the port by `convert` (CPU).  The pixels
+    come from the port's `synthetic.make_problem`; the JAX assets carry
+    the port-built joint model."""
+    import jax.numpy as jnp
+
+    from mvsmplfitting_tpu.models.camera import Camera as JCamera
+    from mvsmplfitting_tpu_torch import convert, synthetic
+    _, _, tc, to = synthetic.make_problem(6, B, seed=seed, device="cpu",
+                                          model_type=model_type)
+    ja = jax_assets(model_type)
+    jw, _ = vposer_pair()
+    jc = JCamera(**{f: jnp.asarray(getattr(tc, f).numpy())
+                    for f in ("rotation", "translation", "focal", "center")})
+    jo = jax_observations(to)
+    ta = dataclasses.replace(
+        convert.smpl_assets(arrays(ja), ja.parents, ja.model_type,
+                            device="cpu"),
+        joint_model=convert.joint_model(arrays(ja.joint_model), ja.parents,
+                                        ja.model_type, device="cpu"))
+    return dict(ta=ta, tc=convert.camera(arrays(jc), device="cpu"),
+                to=convert.observations(arrays(jo), device="cpu"),
+                tw=convert.vposer_weights(arrays(jw), device="cpu"),
+                ja=ja, jc=jc, jo=jo, jw=jw)
+
+
 def rand_joint_inputs(rng, B, J=24, NB=10):
     """theta ~ N(0, 0.4), betas ~ N(0, 1), scale ~ U(0.7, 1.5)."""
     theta = rng.normal(0, 0.4, (B, J * 3)).astype(np.float32)

@@ -1,28 +1,32 @@
 """Where the time of the PyTorch port's fits goes, on one GPU.
 
-    python3 tools/profile_torch_fit.py [--frames 512] [--iters 40] \
-        [--classic] [--fused]
+    python3 tools/profile_torch_fit.py [--frames 512] [--iters N] \
+        [--classic] [--fused] [--solver lm|lbfgs|adam]
     python3 tools/profile_torch_fit.py --multi [--grid 128]
     python3 tools/profile_torch_fit.py --multi --engine points \
         [--points-jac ad|analytic]
 
 Runs the port's main path (`batched_fit_frames`, 6 views, smpl, library
 defaults; `--classic` turns speculative LM off, `--fused` runs all stages
-in one LM loop, `FitConfig.fused`, which is classic LM), or with `--multi` the two-person collision fit on the dx0=0.2
-fixture (`fit_people`): with the grid engine (the default here), the
-hybrid schedule, the weights of `cfg_files/fit_multi_person_sdf.yaml`
-and LM max_iters 60; with `--engine points`, JAX's default engine and
-refinement (15 iterations, annealed, two starts) under the library's
-stage weights and LM max_iters 40 (`chip_smoke.py` [points]), once to
-warm up, then once timed without the profiler and
-once under `torch.profiler`, with the fit's layers wrapped in
-`record_function` ranges (by patching module attributes here; the
-package itself carries no instrumentation).  Prints, one JSON object
-per line: the card, the timed run (wall, frames/s, LM iterations, wall
-per iteration), the device-busy share of the profiled run (sum of the
-device kernels' and copies' times over its wall), the device time by
-kernel category, the top device kernels, and host time per layer
-range.  `--trace PATH` also writes the Chrome trace.
+in one LM loop, `FitConfig.fused`, which is classic LM; `--solver lbfgs`
+or `adam` runs `chip_smoke.py` [lbfgs]'s or [grad]'s configuration
+instead; `--iters` is the per-stage budget, by default 40 LM iterations,
+120 L-BFGS iterations or 150 adam steps: the profiler records every op,
+so profile those solvers over a few iterations), or with `--multi`
+the two-person collision fit on the dx0=0.2 fixture (`fit_people`):
+with the grid engine (the default here), the hybrid schedule, the
+weights of `cfg_files/fit_multi_person_sdf.yaml` and LM max_iters 60;
+with `--engine points`, JAX's default engine and refinement (15
+iterations, annealed, two starts) under the library's stage weights and
+LM max_iters 40 (`chip_smoke.py` [points]), once to warm up, then once
+timed without the profiler and once under `torch.profiler`, with the
+fit's layers wrapped in `record_function` ranges (by patching module
+attributes here; the package itself carries no instrumentation).
+Prints, one JSON object per line: the card, the timed run (wall,
+frames/s, LM iterations, wall per iteration), the device-busy share of
+the profiled run (sum of the device kernels' and copies' times over its
+wall), the device time by kernel category, the top device kernels, and
+host time per layer range.  `--trace PATH` also writes the Chrome trace.
 """
 
 from __future__ import annotations
@@ -53,6 +57,9 @@ LAYERS = (
     ("fitting.energy", "total_energy"),
     ("fitting.energy", "_analytic_core"),
     ("fitting.lm", "_normal_step"),
+    ("fitting.lbfgs", "_strong_wolfe"),
+    ("fitting.lbfgs", "_direction"),
+    ("fitting.gradient", "_update"),
     ("ops.vposer_kernel", "decode_jac_batched"),
     ("ops.joint_kernel", "joint_jacobian_batched"),
     ("fitting.initialize", "init_guess"),
@@ -121,11 +128,17 @@ def _category(name: str) -> str:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=512)
-    ap.add_argument("--iters", type=int, default=40)
+    ap.add_argument("--iters", type=int, default=None,
+                    help="iterations per stage (default: LM 40, L-BFGS "
+                    "120, adam 150)")
     ap.add_argument("--classic", action="store_true",
                     help="classic LM (speculative=False) for the B-frame fit")
     ap.add_argument("--fused", action="store_true",
                     help="FitConfig.fused for the B-frame fit")
+    ap.add_argument("--solver", choices=("lm", "lbfgs", "adam"),
+                    default="lm", help="the B-frame fit's solver: LM, or "
+                    "chip_smoke.py [lbfgs]'s (smpllsp, parity options) or "
+                    "[grad]'s (adam) configuration")
     ap.add_argument("--multi", action="store_true",
                     help="profile the two-person collision fit instead")
     ap.add_argument("--grid", type=int, default=128,
@@ -182,12 +195,23 @@ def main() -> int:
             torch.cuda.synchronize()
             return res
     else:
+        from mvsmplfitting_tpu_torch.fitting.gradient import GradientOptions
+        from mvsmplfitting_tpu_torch.fitting.lbfgs import LBFGSOptions
         B = args.frames
-        assets, vw, cam, obs = make_problem(6, B, seed=0, device=dev)
+        model = "smpllsp" if args.solver == "lbfgs" else "smpl"
+        assets, vw, cam, obs = make_problem(6, B, seed=0, device=dev,
+                                            model_type=model)
         batch = BatchedFitInputs(obs, torch.full((B,), 1080.0, device=dev))
-        cfg = FitConfig(lm=LMOptions(max_iters=args.iters,
-                                     speculative=not args.classic),
-                        fused=args.fused)
+        if args.solver == "lbfgs":
+            cfg = FitConfig(solver="lbfgs", coll_weights=(0.0,) * 4,
+                            lbfgs=LBFGSOptions(max_iters=args.iters or 120))
+        elif args.solver == "adam":
+            cfg = FitConfig(solver="adam", grad=GradientOptions(
+                lr=1e-2, max_iters=args.iters or 150))
+        else:
+            cfg = FitConfig(lm=LMOptions(max_iters=args.iters or 40,
+                                         speculative=not args.classic),
+                            fused=args.fused)
 
         def fit():
             res = batched_fit_frames(cfg, assets, cam, batch, vposer_w=vw,
