@@ -96,11 +96,33 @@ Phases (each prints one line; any failure exits non-zero):
      keypoints of each body moved +8 cm in x (`tests/test_misc.py:51-79`):
      the translation moves by (0.08, 0, 0) within 0.02 on >= 95% of the
      frames;
+ 16. [smplx] `batched_fit_frames` on 512 frames of synthetic SMPL-X
+     (10475 vertices, 55 joints, OpenPose BODY_25, the truth with hand
+     PCA, expression and jaw) with `EnergySpec(hand_dim=6, num_expr=10,
+     opt_face=True)` (80 unknowns), VPoser, the library anneal and LM
+     with max_iters=40 (`tests/test_smplx_family.py:225-277`): frames/s,
+     median loss and reprojection px (< 8), peak device memory, no
+     kernel launches (the AD Jacobian, as in JAX); an 8-frame fit (4
+     stages of 3 chol iterations) on the card against the CPU at rtol
+     1e-3;
+ 17. [smplh] the same on 64 frames of SMPL-H (coco17) with
+     `hand_dim=6` and max_iters=30 (`tests/test_smplx_family.py:
+     280-322`): median reprojection px < 6, card against the CPU;
+ 18. [schur] `schur_sequence_fit` on one person's 512-frame sequence
+     (`synthetic.make_person_sequence`: shared betas, scale 1.15), smpl
+     with the joint model, VPoser, LM max_iters=40, 4 stages: frames/s,
+     LM iterations per stage, the shared scale within rtol 0.05 and the
+     betas within atol 0.6 of the truth (`tests/test_schur.py:81-91`),
+     B1 and B2 launched at least once per LM iteration; an 8-frame
+     sequence (4 stages of 3 chol iterations) on the card against the
+     CPU, per-frame losses at rtol 1e-3, the shared block at rtol 1e-3
+     and atol 1e-4 (betas near 0);
 then the total seconds, the card line, the kernels JSON line and the
 result line.  Each path's launch counters are set to 0 just before it
 and read just after; the JSON line gives every kernel's launches summed
 over [fit], [collide], [multi], [points] (both runs), [fused], [lbfgs],
-[grad], [gmm], [seq] (all steps) and [adjust].
+[grad], [gmm], [seq] (all steps), [adjust], [smplx], [smplh] and
+[schur].
 """
 
 from __future__ import annotations
@@ -130,6 +152,8 @@ B_CHECK = 8            # the card-vs-CPU fits
 # all 512.
 B_LBFGS = 8
 SEQ_STEPS = 4
+B_SMPLH = 64           # [smplh]'s frames
+B_SCHUR = 512          # [schur]'s sequence length
 G_FIT = 128            # the reference's production grid (fitting.py:374)
 G_CHECK = 64           # the grid of the kernel-vs-plain check
 
@@ -1169,6 +1193,146 @@ def adjust_phase(dev, launches: dict, cfg, assets, vw, cam, obs,
     assert ok.double().mean().item() >= 0.95, delta
 
 
+def family_phase(dev, launches: dict, model_type: str, frames: int,
+                 spec_kw: dict, max_iters: int, px_limit: float) -> None:
+    """[smplx] / [smplh]: the batched fit of SMPL-X (coco25) or SMPL-H
+    (coco17) with the tail blocks of `spec_kw`, VPoser, the library LM
+    and anneal; the AD Jacobian, as in JAX (no kernel launches)."""
+    from mvsmplfitting_tpu_torch.fitting import energy as E
+    from mvsmplfitting_tpu_torch.fitting.lm import LMOptions
+    from mvsmplfitting_tpu_torch.fitting.stages import FitConfig
+    from mvsmplfitting_tpu_torch.ops import joint_kernel as JK
+    from mvsmplfitting_tpu_torch.ops import sdf_kernel as SK
+    from mvsmplfitting_tpu_torch.ops import vposer_kernel as VK
+    from mvsmplfitting_tpu_torch.parallel.batched import (
+        BatchedFitInputs, batched_fit_frames)
+    from mvsmplfitting_tpu_torch.synthetic import make_problem
+
+    spec = E.EnergySpec(**spec_kw)
+    cfg = FitConfig(spec=spec, lm=LMOptions(max_iters=max_iters))
+    assets, vw, cam, obs = make_problem(6, frames, seed=0, device=dev,
+                                        model_type=model_type)
+    batch = BatchedFitInputs(obs, torch.full((frames,), 1080.0, device=dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    reset_launches(JK, VK, SK)
+    t0 = time.perf_counter()
+    res = batched_fit_frames(cfg, assets, cam, batch, vposer_w=vw,
+                             device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_launches(JK, VK, SK)
+    peak = torch.cuda.max_memory_allocated(dev)
+    assert res.stage_losses.shape == (frames, 4)
+    assert bool(torch.isfinite(res.stage_losses).all()), "non-finite loss"
+    assert sum(got.values()) == 0, got
+    launches[model_type] = got
+    px = E.reprojection_error_px(spec, assets, cam, obs, vw,
+                                 E.pack(spec, res.params, res.z))
+    med_px = px.median().item()
+    log(model_type, frames=frames, views=6, keypoints=obs.gt2d.shape[2],
+        unknowns=E.num_unknowns(spec), fps=f"{frames / wall:.1f}",
+        wall_s=f"{wall:.3f}",
+        lm_iterations=int(res.lm_iters.amax(dim=0).sum().item()),
+        median_final_loss=f"{res.loss.median().item():.3f}",
+        median_reproj_px=f"{med_px:.4f}",
+        max_reproj_px=f"{px.max().item():.4f}",
+        peak_alloc_mib=f"{peak / 2**20:.1f}",
+        peak_over_inputs_mib=f"{(peak - base) / 2**20:.1f}",
+        launches=json.dumps(got).replace(" ", ""))
+    assert med_px < px_limit, (model_type, med_px)
+
+    short = FitConfig(spec=spec, lm=LMOptions(max_iters=3, linsolve="chol",
+                                              speculative=False))
+    prob = make_problem(6, B_CHECK, seed=1, device="cpu",
+                        model_type=model_type)
+
+    def run(d):
+        a, w, c, o = (v.to(d) for v in prob)
+        return batched_fit_frames(
+            short, a, c, BatchedFitInputs(o, torch.full((B_CHECK,), 1080.0,
+                                                        device=d)),
+            vposer_w=w, device=d).stage_losses
+    rel = check_fits(run, dev)
+    log(model_type, parity_frames=B_CHECK, stage_losses_max_rel=f"{rel:.3e}",
+        tolerance="rtol 1e-3")
+
+
+def schur_phase(dev, launches: dict) -> None:
+    """[schur]: one person's sequence with one shared (betas, scale)."""
+    from mvsmplfitting_tpu_torch.fitting import energy as E
+    from mvsmplfitting_tpu_torch.fitting.initialize import init_guess
+    from mvsmplfitting_tpu_torch.fitting.lm import LMOptions
+    from mvsmplfitting_tpu_torch.fitting.stages import FitConfig
+    from mvsmplfitting_tpu_torch.ops import joint_kernel as JK
+    from mvsmplfitting_tpu_torch.ops import sdf_kernel as SK
+    from mvsmplfitting_tpu_torch.ops import vposer_kernel as VK
+    from mvsmplfitting_tpu_torch.parallel.schur import schur_sequence_fit
+    from mvsmplfitting_tpu_torch.synthetic import make_person_sequence
+
+    def fit(cfg, prob, d):
+        assets, vw, cam, obs = (v.to(d) for v in prob[:4])
+        guess = init_guess(assets, cam, obs.gt2d, obs.conf, obs.view_mask)
+        return schur_sequence_fit(cfg, assets, cam, obs, guess.params,
+                                  guess.z, vposer_w=vw, device=d)
+
+    cfg = FitConfig(lm=LMOptions(max_iters=40))
+    prob = make_person_sequence(B_SCHUR, seed=0, device=dev)
+    truth = prob[4]
+    torch.cuda.synchronize()
+    reset_launches(JK, VK, SK)
+    t0 = time.perf_counter()
+    params, z, losses, shared, iters = fit(cfg, prob, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_launches(JK, VK, SK)
+    launches["schur"] = got
+    scale, betas = shared[10].item(), shared[:10].cpu().numpy()
+    beta_err = np.abs(betas - truth["betas"][0]).max()
+    assets, vw, cam, obs = prob[:4]
+    px = E.reprojection_error_px(cfg.spec, assets, cam, obs, vw,
+                                 E.pack(cfg.spec, params, z))
+    log("schur", frames=B_SCHUR, views=6, model="smpl",
+        fps=f"{B_SCHUR / wall:.1f}", wall_s=f"{wall:.3f}",
+        lm_iterations=",".join(str(i) for i in iters),
+        median_final_loss=f"{losses.median().item():.3f}",
+        mean_final_loss=f"{losses.mean().item():.3f}",
+        max_final_loss=f"{losses.max().item():.3f}",
+        median_reproj_px=f"{px.median().item():.4f}",
+        max_reproj_px=f"{px.max().item():.4f}",
+        scale=f"{scale:.4f}", scale_true=f"{truth['scale'][0]:.4f}",
+        betas_max_abs_err=f"{beta_err:.4f}",
+        launches=json.dumps(got).replace(" ", ""))
+    assert bool(torch.isfinite(losses).all()), "non-finite loss"
+    assert abs(scale - 1.15) <= 0.05 * 1.15, scale
+    assert beta_err <= 0.6, (betas, truth["betas"][0])
+    for name in ("joint_jacobian", "vposer_tail"):
+        assert got[name] >= sum(iters), (name, got, iters)
+
+    # Card against the CPU: 8 frames, 4 stages of 3 LM iterations.
+    short = FitConfig(lm=LMOptions(max_iters=3, linsolve="chol",
+                                   speculative=False))
+    small = make_person_sequence(B_CHECK, seed=1, device="cpu")
+    out = {}
+    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        _, _, l8, s8, it8 = fit(short, small, d)
+        out[name] = (s8.cpu(), l8.cpu(), it8)
+    # Betas near 0 (~1e-2) differ by ~2e-5 in fp32, hence the shared
+    # block's atol.
+    assert out["cuda"][2] == out["cpu"][2], (out["cuda"][2], out["cpu"][2])
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-3,
+                               atol=1e-4)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-3,
+                               atol=0.0)
+    d_shared = (out["cuda"][0] - out["cpu"][0]).abs().max().item()
+    rel = ((out["cuda"][1] - out["cpu"][1]).abs()
+           / out["cpu"][1].abs()).max().item()
+    log("schur", parity_frames=B_CHECK, shared_max_abs=f"{d_shared:.3e}",
+        losses_max_rel=f"{rel:.3e}",
+        tolerance="shared rtol 1e-3 atol 1e-4, losses rtol 1e-3")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1350,6 +1514,12 @@ def main() -> int:
     gmm_phase(dev, path)
     seq_phase(dev, path)
     adjust_phase(dev, path, cfg, assets, vw, cam, obs, res)
+    # JAX's own SMPL-X / SMPL-H fit tests' setups
+    # (`tests/test_smplx_family.py:225-322`).
+    family_phase(dev, path, "smplx", B_FIT,
+                 dict(hand_dim=6, num_expr=10, opt_face=True), 40, 8.0)
+    family_phase(dev, path, "smplh", B_SMPLH, dict(hand_dim=6), 30, 6.0)
+    schur_phase(dev, path)
     # Every kernel's launches summed over the fit paths.
     for name in kernels:
         kernels[name]["launches"] = sum(p.get(name, 0) for p in path.values())

@@ -8,9 +8,12 @@ takes a `device` that defaults to CUDA (see `device.resolve_device`).
 
 Ported so far: the batched single-person fit
 (`parallel.batched.batched_fit_frames`) with every solver, prior and
-sequence option of JAX's `FitConfig` for smpl/smpllsp, and the
-multi-person collision fits (`fitting.multi_person.fit_people`); the
-kernels on their paths are hand-written in CUDA C++ under `csrc/`.
+sequence option of JAX's `FitConfig` for the whole body family (smpl,
+smpllsp, SMPL-H and SMPL-X with their hand, expression and face
+blocks), the one-card shared-shape sequence fit
+(`parallel.schur.schur_sequence_fit`), and the multi-person collision
+fits (`fitting.multi_person.fit_people`); the kernels on their paths are
+hand-written in CUDA C++ under `csrc/`.
 """
 
 from .device import resolve_device

@@ -18,7 +18,7 @@ from .fitting.energy import Observations
 from .models.camera import Camera
 from .models.joint_model import JointModel
 from .models.priors import GMMPrior
-from .models.smpl import SMPLAssets, SMPLParams
+from .models.smpl import TAIL_FIELDS, SMPLAssets, SMPLParams
 from .models.vposer import VPoserWeights
 
 Arrays = Mapping[str, Optional[np.ndarray]]
@@ -29,6 +29,11 @@ def _f32(a, dev):
                            device=dev)
 
 
+def _opt_f32(arrays: Arrays, name: str, dev):
+    a = arrays.get(name)
+    return None if a is None else _f32(a, dev)
+
+
 def _i64(a, dev):
     return torch.as_tensor(np.asarray(a, np.int64), device=dev)
 
@@ -36,12 +41,16 @@ def _i64(a, dev):
 def smpl_assets(arrays: Arrays, parents: Tuple[int, ...], model_type: str,
                 gender: str = "neutral",
                 device: DeviceLike = None) -> SMPLAssets:
-    """`SMPLAssets` from the JAX `SMPLAssets` arrays (joint model not
+    """`SMPLAssets` from the JAX `SMPLAssets` arrays, with the SMPL-H/X
+    hand PCA and expression blend shapes where given (joint model not
     included: build it with `joint_model.with_joint_model` or
     `convert.joint_model`)."""
     dev = resolve_device(device)
     lsp = arrays.get("lsp_regressor")
     return SMPLAssets(
+        hand_components=_opt_f32(arrays, "hand_components", dev),
+        hand_means=_opt_f32(arrays, "hand_means", dev),
+        expr_dirs=_opt_f32(arrays, "expr_dirs", dev),
         v_template=_f32(arrays["v_template"], dev),
         shapedirs=_f32(arrays["shapedirs"], dev),
         posedirs=_f32(arrays["posedirs"], dev),
@@ -57,9 +66,13 @@ def smpl_assets(arrays: Arrays, parents: Tuple[int, ...], model_type: str,
 
 def joint_model(arrays: Arrays, parents: Tuple[int, ...], model_type: str,
                 device: DeviceLike = None) -> JointModel:
-    """`JointModel` from the JAX `JointModel` arrays (fold required)."""
+    """`JointModel` from the JAX `JointModel` arrays (fold required; the
+    SMPL-X expression fold and hand PCA where given)."""
     dev = resolve_device(device)
     return JointModel(
+        He=_opt_f32(arrays, "He", dev), JE=_opt_f32(arrays, "JE", dev),
+        hand_components=_opt_f32(arrays, "hand_components", dev),
+        hand_means=_opt_f32(arrays, "hand_means", dev),
         H0=_f32(arrays["H0"], dev), Hb=_f32(arrays["Hb"], dev),
         Hp=_f32(arrays["Hp"], dev), j0=_f32(arrays["j0"], dev),
         JB=_f32(arrays["JB"], dev),
@@ -89,15 +102,12 @@ def observations(arrays: Arrays, device: DeviceLike = None) -> Observations:
     view_mask (B, V), joint_weights (B, K), and the optional 3D joints
     gt3d (B, K, 3) with conf3d (B, K)."""
     dev = resolve_device(device)
-
-    def opt(name):
-        a = arrays.get(name)
-        return None if a is None else _f32(a, dev)
     return Observations(gt2d=_f32(arrays["gt2d"], dev),
                         conf=_f32(arrays["conf"], dev),
                         view_mask=_f32(arrays["view_mask"], dev),
                         joint_weights=_f32(arrays["joint_weights"], dev),
-                        gt3d=opt("gt3d"), conf3d=opt("conf3d"))
+                        gt3d=_opt_f32(arrays, "gt3d", dev),
+                        conf3d=_opt_f32(arrays, "conf3d", dev))
 
 
 def gmm(arrays: Arrays, device: DeviceLike = None) -> GMMPrior:
@@ -110,10 +120,12 @@ def gmm(arrays: Arrays, device: DeviceLike = None) -> GMMPrior:
 
 
 def smpl_params(arrays: Arrays, device: DeviceLike = None) -> SMPLParams:
-    """Frame-batched `SMPLParams` (scale as (B,))."""
+    """Frame-batched `SMPLParams` (scale as (B,)), with whichever SMPL-H/X
+    blocks are given."""
     dev = resolve_device(device)
     return SMPLParams(betas=_f32(arrays["betas"], dev),
                       global_orient=_f32(arrays["global_orient"], dev),
                       body_pose=_f32(arrays["body_pose"], dev),
                       transl=_f32(arrays["transl"], dev),
-                      scale=_f32(arrays["scale"], dev).reshape(-1))
+                      scale=_f32(arrays["scale"], dev).reshape(-1),
+                      **{k: _opt_f32(arrays, k, dev) for k in TAIL_FIELDS})

@@ -15,9 +15,10 @@ frame's body in its own voxelized field; voxelizing launches a kernel on
 the card, so `residuals` takes the grids as an argument when it runs
 inside a `torch.func` transform (see `collision_grids`).
 
-Every function takes x (B, n) and returns per-frame values.  Not ported
-yet: the SMPL-H/X parameter blocks; asking for them raises
-NotImplementedError.
+Every function takes x (B, n) and returns per-frame values.  The
+SMPL-H/X tail blocks (hand PCA, expression, jaw and eyes) sit after the
+scale and carry L2 priors; their fits take the AD Jacobian
+(`analytic_jac_ok`), as in JAX.
 """
 
 from __future__ import annotations
@@ -98,15 +99,10 @@ class EnergySpec:
     opt_face: bool = False
 
 
-def check_ported(spec: EnergySpec) -> None:
-    """Raise NotImplementedError for the blocks not ported yet."""
-    if extra_dims(spec):
-        raise NotImplementedError(
-            "SMPL-H/X hand, expression and face blocks are not ported yet")
-
-
 # Flat parameter vector (B, n): [pose block, betas(NB), global_orient(3),
-# transl(3), scale(1)], pose block = z(32) with VPoser, else body_pose(69).
+# transl(3), scale(1), lhand(HD), rhand(HD), expression(NE), jaw(3),
+# leye(3), reye(3)], pose block = z(32) with VPoser, else body_pose(69);
+# the tail blocks exist only where the spec enables them (SMPL-H/X).
 
 def pose_dim(spec: EnergySpec) -> int:
     return LATENT_DIM if spec.use_vposer else 69
@@ -116,12 +112,31 @@ def extra_dims(spec: EnergySpec) -> int:
     return 2 * spec.hand_dim + spec.num_expr + (9 if spec.opt_face else 0)
 
 
+def num_unknowns(spec: EnergySpec) -> int:
+    return pose_dim(spec) + spec.num_betas + 7 + extra_dims(spec)
+
+
+# The tail blocks in pack order: (SMPLParams field, width).
+def _tail_layout(spec: EnergySpec):
+    out = []
+    if spec.hand_dim:
+        out += [("left_hand_pose", spec.hand_dim),
+                ("right_hand_pose", spec.hand_dim)]
+    if spec.num_expr:
+        out.append(("expression", spec.num_expr))
+    if spec.opt_face:
+        out += [("jaw_pose", 3), ("leye_pose", 3), ("reye_pose", 3)]
+    return out
+
+
 def pack(spec: EnergySpec, params: SMPLParams,
          z: Optional[torch.Tensor] = None) -> torch.Tensor:
-    check_ported(spec)
     block = z if spec.use_vposer else params.body_pose
+    tail = [getattr(params, name) if getattr(params, name) is not None
+            else block.new_zeros((block.shape[0], width))
+            for name, width in _tail_layout(spec)]
     return torch.cat([block, params.betas, params.global_orient,
-                      params.transl, params.scale[:, None]], dim=-1)
+                      params.transl, params.scale[:, None]] + tail, dim=-1)
 
 
 def unpack(spec: EnergySpec, x: torch.Tensor
@@ -132,13 +147,17 @@ def unpack(spec: EnergySpec, x: torch.Tensor
     orient = x[:, p + nb:p + nb + 3]
     transl = x[:, p + nb + 3:p + nb + 6]
     scale = x[:, p + nb + 6]
+    tail, o = {}, p + nb + 7
+    for name, width in _tail_layout(spec):
+        tail[name] = x[:, o:o + width]
+        o += width
     if spec.use_vposer:
         return SMPLParams(betas=betas, global_orient=orient,
                           body_pose=torch.zeros_like(x[:, :1]).expand(
                               x.shape[0], 69),
-                          transl=transl, scale=scale), block
+                          transl=transl, scale=scale, **tail), block
     return SMPLParams(betas=betas, global_orient=orient, body_pose=block,
-                      transl=transl, scale=scale), None
+                      transl=transl, scale=scale, **tail), None
 
 
 def free_mask(spec: EnergySpec, device=None) -> torch.Tensor:
@@ -211,7 +230,6 @@ def energy_terms(spec: EnergySpec, assets: SMPLAssets, cam: Camera,
                  vposer_w: Optional[vposer_lib.VPoserWeights],
                  gmm: Optional[GMMPrior], x: torch.Tensor) -> dict:
     """All energy terms as a dict of (B,) tensors (see `total_energy`)."""
-    check_ported(spec)
     params, z, body_pose, verts, joints = _forward(
         spec, assets, vposer_w, x, need_verts=_coll_on(spec, weights))
     zero = torch.zeros_like(x[:, 0])
@@ -252,9 +270,10 @@ def energy_terms(spec: EnergySpec, assets: SMPLAssets, cam: Camera,
                                         _col(weights.coll, 1),
                                         spec.coll_grid_size)
 
+    extra = torch.sum(_tail_prior_rows(spec, weights, params) ** 2, dim=-1)
     return {"joint": joint_loss, "joint3d": loss3d, "pose_prior": pprior,
             "shape_prior": shape_loss, "angle_prior": angle,
-            "collision": coll, "extra_prior": zero}
+            "collision": coll, "extra_prior": extra}
 
 
 def total_energy(spec: EnergySpec, assets: SMPLAssets, cam: Camera,
@@ -334,6 +353,20 @@ def _prior_rows_core(spec: EnergySpec, weights: StageWeights,
     return torch.cat(rows, dim=-1)
 
 
+def _tail_prior_rows(spec: EnergySpec, weights: StageWeights,
+                     params: SMPLParams) -> torch.Tensor:
+    """SMPL-H/X block prior rows (B, extra_dims): L2 on the hand PCA and
+    face pose at the pose weight, on the expression at the shape weight
+    (smplify-x's structure; the reference's scaled SMPL-X path cannot
+    run, `body_models_scale.py:622,935`)."""
+    pose, shape = _col(weights.pose, 1), _col(weights.shape, 1)
+    rows = [(shape if name == "expression" else pose) * getattr(params, name)
+            for name, _ in _tail_layout(spec)]
+    if not rows:
+        return params.betas.new_zeros((params.betas.shape[0], 0))
+    return torch.cat(rows, dim=-1)
+
+
 def residuals(spec: EnergySpec, assets: SMPLAssets, cam: Camera,
               obs: Observations, weights: StageWeights,
               vposer_w: Optional[vposer_lib.VPoserWeights],
@@ -348,13 +381,14 @@ def residuals(spec: EnergySpec, assets: SMPLAssets, cam: Camera,
 
     `grids` (from `collision_grids`) holds the fields fixed; without it
     the body is voxelized at x, which needs x to be a plain tensor.
+    The SMPL-H/X tail prior rows follow the prior rows.
     """
-    check_ported(spec)
     params, z, body_pose, verts, joints = _forward(
         spec, assets, vposer_w, x, need_verts=_coll_on(spec, weights))
     rows = [_data_rows_from_joints(spec, cam, obs, weights, joints),
             _prior_rows_core(spec, weights, gmm, z, body_pose,
-                             params.betas)]
+                             params.betas),
+            _tail_prior_rows(spec, weights, params)]
     if _coll_on(spec, weights):
         if grids is None:
             grids = sdf_ops.person_grids(verts[:, None], assets.faces,
@@ -395,7 +429,6 @@ def residual_jacobian(spec: EnergySpec, assets: SMPLAssets, cam: Camera,
     (projection + GMoF, the 3D-joint rows, prior rows) are
     differentiated, by forward mode over the n tangent columns.
     """
-    check_ported(spec)
     if _coll_on(spec, weights):
         raise ValueError("residual_jacobian does not cover the collision "
                          "rows; collision stages use the AD Jacobian")

@@ -28,8 +28,11 @@ TORSO = np.asarray([5, 6, 11, 12])  # LShoulder RShoulder LHip RHip
 
 
 def torso_indices(model_type: str) -> np.ndarray:
-    """Shoulder and hip rows in the model's annotation order (coco17 and
-    lsp14 both carry them at 5/6 and 11/12; SMPL-X is not ported)."""
+    """Shoulder and hip rows in the model's annotation order: 5/6 and
+    11/12 in coco17 and lsp14 (`init_guess.py:89-92`), 2/5 and 9/12 in
+    SMPL-X's OpenPose BODY_25."""
+    if model_type == "smplx":
+        return np.asarray([2, 5, 9, 12])
     return TORSO
 
 
@@ -116,10 +119,16 @@ def warm_start(prev_params: SMPLParams, prev_z: torch.Tensor,
     """Sequence warm start (`load_init`, `init_guess.py:137-166`): each
     frame reuses the previous frame's solution unless that frame's final
     loss (B,) exceeded the threshold, where the fresh guess wins.  The
-    choice is per frame, so one batch can mix both."""
+    choice is per frame, so one batch can mix both.  An SMPL-H/X block
+    that only one side carries is zeros on the other (the fresh guess
+    has none)."""
     use_prev = prev_loss <= loss_threshold
 
     def pick(a, b):
+        if a is None and b is None:
+            return None
+        a = torch.zeros_like(b) if a is None else a
+        b = torch.zeros_like(a) if b is None else b
         u = use_prev.reshape((-1,) + (1,) * (a.dim() - 1))
         return torch.where(u, a, b)
 

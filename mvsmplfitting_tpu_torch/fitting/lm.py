@@ -53,11 +53,20 @@ class LMOptions:
     jac: str = "analytic"
 
 
+def _cholesky(A: torch.Tensor) -> torch.Tensor:
+    """Cholesky factors of (..., n, n); NaN where a matrix is not
+    positive definite in fp32 (as XLA's, so the step is rejected rather
+    than raising)."""
+    L, info = torch.linalg.cholesky_ex(A)
+    return torch.where((info != 0)[..., None, None],
+                       torch.full_like(L, float("nan")), L)
+
+
 def _solve_spd(A: torch.Tensor, b: torch.Tensor, method: str,
                schulz_iters: int = 12) -> torch.Tensor:
     """Solve A x = b for damped-SPD A (B, n, n), b (B, n)."""
     if method == "chol":
-        L = torch.linalg.cholesky(A)
+        L = _cholesky(A)
         y = torch.linalg.solve_triangular(L, b[..., None], upper=False)
         return torch.linalg.solve_triangular(L.transpose(-1, -2), y,
                                              upper=True)[..., 0]
@@ -78,6 +87,14 @@ def _solve_spd(A: torch.Tensor, b: torch.Tensor, method: str,
     if method == "lu":
         return torch.linalg.solve(A, b)
     raise ValueError(f"unknown linsolve {method!r}")
+
+
+def _spd_inv(A: torch.Tensor) -> torch.Tensor:
+    """Inverse of damped-SPD matrices (..., n, n) through Cholesky."""
+    L = _cholesky(A)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    y = torch.linalg.solve_triangular(L, eye.expand_as(A), upper=False)
+    return torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)
 
 
 def _normal_step(r, J, lam, mask, opts: LMOptions):

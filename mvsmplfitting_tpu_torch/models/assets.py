@@ -1,5 +1,5 @@
-"""SMPL asset loading: official pkl files, npz caches and synthetic
-models (port of the smpl / smpllsp arms of `models/assets.py`).
+"""SMPL-family asset loading: official pkl files, npz caches and
+synthetic models (port of `models/assets.py`).
 
 The official SMPL pickles hold chumpy arrays and scipy sparse matrices;
 chumpy is no dependency, so the loader unpickles with a stub class and
@@ -62,7 +62,8 @@ def load_smpl_pkl(path: str) -> dict:
 
 def _build(raw: dict, model_type: str, gender: str,
            lsp_regressor: Optional[np.ndarray], pose_format: Optional[str],
-           device: torch.device, dtype=torch.float32) -> SMPLAssets:
+           device: torch.device, dtype=torch.float32,
+           flat_hand_mean: bool = False, num_expr: int = 10) -> SMPLAssets:
     def t(a):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                device=device)
@@ -71,11 +72,33 @@ def _build(raw: dict, model_type: str, gender: str,
         return torch.as_tensor(np.asarray(a, np.int64), device=device)
 
     full_shapedirs = np.asarray(raw["shapedirs"], np.float32)
+    # SMPL-X: the expression blend shapes are the shapedirs columns after
+    # the 10 shape ones (`body_models.py:914-921`).
+    expr_dirs = None
+    if model_type == "smplx" and full_shapedirs.shape[-1] > J.NUM_BETAS:
+        hi = min(full_shapedirs.shape[-1], J.NUM_BETAS + num_expr)
+        expr_dirs = t(full_shapedirs[..., J.NUM_BETAS:hi])
+    # MANO hand PCA (pkl keys `hands_components{l,r}`, `hands_mean{l,r}`,
+    # `body_models.py:493-513`); zero means under flat_hand_mean.
+    hand_components = hand_means = None
+    if "hands_componentsl" in raw:
+        hand_components = t(np.stack([
+            np.asarray(raw["hands_componentsl"], np.float32),
+            np.asarray(raw["hands_componentsr"], np.float32)]))
+        if flat_hand_mean:
+            means = np.zeros((2, 45), np.float32)
+        else:
+            means = np.stack([np.asarray(raw["hands_meanl"], np.float32),
+                              np.asarray(raw["hands_meanr"], np.float32)])
+        hand_means = t(means)
+
     posedirs = np.asarray(raw["posedirs"], np.float32)
-    posedirs = posedirs.reshape(-1, posedirs.shape[-1]).T      # (207, V*3)
+    posedirs = posedirs.reshape(-1, posedirs.shape[-1]).T  # ((J-1)*9, V*3)
     parents = tuple(int(p) for p in np.asarray(raw["kintree_table"])[0])
     parents = (-1,) + parents[1:]
     fmt = pose_format or J.pose_format_for_model(model_type)
+    vertex_set = "smplx" if model_type == "smplx" else "smplh"
+    use_feet = model_type == "smplx"   # coco25 has the foot keypoints
     return SMPLAssets(
         v_template=t(raw["v_template"]),
         shapedirs=t(full_shapedirs[..., :J.NUM_BETAS]),
@@ -83,9 +106,11 @@ def _build(raw: dict, model_type: str, gender: str,
         j_regressor=t(_to_dense(raw["J_regressor"])),
         lbs_weights=t(raw["weights"]),
         faces=idx(raw["f"]),
-        extra_joint_ids=idx(J.extra_joint_ids("smplh", False)),
+        extra_joint_ids=idx(J.extra_joint_ids(vertex_set, use_feet)),
         joint_map=idx(J.model_to_annotation(model_type, fmt)),
         lsp_regressor=None if lsp_regressor is None else t(lsp_regressor),
+        hand_components=hand_components, hand_means=hand_means,
+        expr_dirs=expr_dirs,
         parents=parents, model_type=model_type, gender=gender)
 
 
@@ -93,24 +118,26 @@ def load_smpl(model_folder: str, model_type: str = "smpl",
               gender: str = "neutral",
               lsp_regressor_path: Optional[str] = None,
               pose_format: Optional[str] = None,
+              flat_hand_mean: bool = False, num_expr: int = 10,
               device: DeviceLike = None) -> SMPLAssets:
-    """Load smpl / smpllsp assets the way the reference resolves them.
+    """Load SMPL-family assets the way the reference resolves them.
 
-    `model_folder` is the directory holding `smpl/SMPL_<GENDER>.pkl` (or
-    that file's own directory; smpllsp uses the smpl files,
-    `body_models_scale.py:82-87`), or a direct path to a pkl/npz.  For
-    smpllsp an LSP 14-joint regressor npz (key `joint_regressor`,
-    (14, V)) is required.
+    `model_folder` is the directory holding
+    `<family>/<FAMILY>_<GENDER>.pkl|npz` (family smpl, smplh or smplx;
+    smpllsp uses the smpl files, `body_models_scale.py:82-87`,
+    `body_models.py:483-484,717-718`), that file's own directory, or a
+    direct path to a pkl/npz.  For smpllsp an LSP 14-joint regressor npz
+    (key `joint_regressor`, (14, V)) is required.
     """
-    if model_type not in ("smpl", "smpllsp"):
-        J.parents_for_model(model_type)   # raises for SMPL-H/X
+    family = "smpl" if model_type == "smpllsp" else model_type
+    J.parents_for_model(model_type)   # raises for an unknown type
     dev = resolve_device(device)
     path = model_folder
     if os.path.isdir(path):
-        sub = os.path.join(path, "smpl")
+        sub = os.path.join(path, family)
         if os.path.isdir(sub):
             path = sub
-        base = os.path.join(path, f"SMPL_{gender.upper()}")
+        base = os.path.join(path, f"{family.upper()}_{gender.upper()}")
         for ext in (".pkl", ".npz"):
             if os.path.exists(base + ext):
                 path = base + ext
@@ -118,7 +145,7 @@ def load_smpl(model_folder: str, model_type: str = "smpl",
         else:
             path = base + ".pkl"
     if not os.path.exists(path):
-        raise FileNotFoundError(f"smpl model not found: {path}")
+        raise FileNotFoundError(f"{family} model not found: {path}")
     if path.endswith(".npz"):
         with np.load(path, allow_pickle=True) as data:
             raw = {k: data[k] for k in data.files}
@@ -132,24 +159,28 @@ def load_smpl(model_folder: str, model_type: str = "smpl",
         if lsp_regressor_path is None:
             raise ValueError("smpllsp requires lsp_regressor_path")
         lsp = np.load(lsp_regressor_path)["joint_regressor"]
-    return _build(raw, model_type, gender, lsp, pose_format, dev)
+    return _build(raw, model_type, gender, lsp, pose_format, dev,
+                  flat_hand_mean=flat_hand_mean, num_expr=num_expr)
 
 
 def synthetic_smpl(model_type: str = "smpl", seed: int = 0,
                    pose_format: Optional[str] = None,
+                   flat_hand_mean: bool = False,
                    device: DeviceLike = None) -> SMPLAssets:
-    """Deterministic synthetic SMPL model at full production shapes
-    (6890 vertices, 13776 faces, the real 24-joint tree) with generated
-    geometry: an ellipsoid mesh, a plausible skeleton, distance-based
-    skinning weights and small random blend shapes."""
-    if model_type not in ("smpl", "smpllsp"):
-        J.parents_for_model(model_type)   # raises for SMPL-H/X
+    """Deterministic synthetic SMPL-family model at full production shapes
+    (6890 vertices and 24 joints for smpl, 52 for smplh; 10475 vertices
+    and 55 joints for smplx; the real trees) with generated geometry: an
+    ellipsoid mesh, a plausible skeleton, distance-based skinning weights,
+    small random blend shapes and, for smplh/smplx, orthonormal MANO-like
+    hand bases."""
+    J.parents_for_model(model_type)   # raises for an unknown type
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
-    num_verts = NUM_VERTS
+    num_verts = 10475 if model_type == "smplx" else NUM_VERTS
 
-    # UV-sphere grid stretched into a body-like ellipsoid: 2 + 84*82.
-    n_lat, n_lon = 84, 82
+    # UV-sphere grid stretched into a body-like ellipsoid: 6890 = 2 +
+    # 84*82; 10475 = 2 + 101*103 + 70 extra points.
+    n_lat, n_lon = (101, 103) if model_type == "smplx" else (84, 82)
     lat = np.linspace(1e-2, np.pi - 1e-2, n_lat)
     lon = np.linspace(0, 2 * np.pi, n_lon, endpoint=False)
     lat_g, lon_g = np.meshgrid(lat, lon, indexing="ij")
@@ -159,6 +190,12 @@ def synthetic_smpl(model_type: str = "smpl", seed: int = 0,
     grid = np.stack([xs, ys, zs], -1).reshape(-1, 3)
     poles = np.array([[0.0, 0.9, 0.0], [0.0, -0.9, 0.0]])
     v_template = np.concatenate([poles, grid], 0).astype(np.float32)
+    if v_template.shape[0] < num_verts:
+        extra = rng.standard_normal((num_verts - v_template.shape[0], 3))
+        extra /= np.linalg.norm(extra, axis=1, keepdims=True)
+        extra = extra * [0.25, 0.85, 0.15]
+        v_template = np.concatenate(
+            [v_template, extra.astype(np.float32)], 0)
     assert v_template.shape[0] == num_verts
 
     def vid(i, j):
@@ -174,7 +211,9 @@ def synthetic_smpl(model_type: str = "smpl", seed: int = 0,
             c, d = vid(i + 1, j), vid(i + 1, j + 1)
             tris.append([a, b, c])
             tris.append([b, d, c])
-    faces = np.asarray(tris, np.int32)[:NUM_FACES]
+    faces = np.asarray(tris, np.int32)
+    if model_type != "smplx":
+        faces = faces[:NUM_FACES]
 
     joint_pos = np.array([
         [0.00, 0.00, 0.0],    # pelvis
@@ -204,6 +243,29 @@ def synthetic_smpl(model_type: str = "smpl", seed: int = 0,
     ], np.float32)
     parents = J.parents_for_model(model_type)
     nj = len(parents)
+    if nj > 24:
+        # SMPL-H / SMPL-X: body joints 0-21 shared with SMPL, then the
+        # face joints near the head (SMPL-X) and 5x3 finger chains
+        # fanning from each wrist.
+        pieces = [joint_pos[:22]]
+        if model_type == "smplx":
+            head = joint_pos[15]
+            pieces.append(np.asarray([
+                head + [0.0, -0.04, 0.05],   # jaw
+                head + [0.03, 0.02, 0.06],   # left eye
+                head + [-0.03, 0.02, 0.06],  # right eye
+            ], np.float32))
+        for sign in (1.0, -1.0):   # left, right
+            wrist = joint_pos[20 if sign > 0 else 21]
+            fingers = []
+            for f in range(5):
+                dz = (f - 2) * 0.012
+                for k in range(3):
+                    fingers.append(
+                        wrist + [sign * 0.02 * (k + 1), -0.01 * k, dz])
+            pieces.append(np.asarray(fingers, np.float32))
+        joint_pos = np.concatenate(pieces, 0)
+    assert joint_pos.shape[0] == nj, (joint_pos.shape, nj)
 
     # Joint regressor: soft nearest vertices, rows summing to 1.
     d2 = ((joint_pos[:, None, :] - v_template[None, :, :]) ** 2).sum(-1)
@@ -214,7 +276,10 @@ def synthetic_smpl(model_type: str = "smpl", seed: int = 0,
     lbs_weights = (w / w.sum(1, keepdims=True)).astype(np.float32)
 
     num_pose = 9 * (nj - 1)
-    shapedirs = (0.01 * rng.standard_normal((num_verts, 3, J.NUM_BETAS))
+    # SMPL-X raw shapedirs carry 10 shape + 10 expression columns, split
+    # by `_build` as the real npz's are.
+    num_shape_cols = J.NUM_BETAS + (10 if model_type == "smplx" else 0)
+    shapedirs = (0.01 * rng.standard_normal((num_verts, 3, num_shape_cols))
                  ).astype(np.float32)
     posedirs = (0.001 * rng.standard_normal((num_pose, num_verts * 3))
                 ).astype(np.float32)
@@ -233,4 +298,16 @@ def synthetic_smpl(model_type: str = "smpl", seed: int = 0,
         "f": faces,
         "kintree_table": np.stack([np.asarray(parents), np.arange(nj)]),
     }
-    return _build(raw, model_type, "neutral", lsp, pose_format, dev)
+    if model_type in ("smplh", "smplx"):
+        # MANO-like hand PCA: orthonormal 45-D bases and small mean poses,
+        # in the real pkl key layout.
+        ql, _ = np.linalg.qr(rng.standard_normal((45, 45)))
+        qr_, _ = np.linalg.qr(rng.standard_normal((45, 45)))
+        raw["hands_componentsl"] = ql.astype(np.float32)
+        raw["hands_componentsr"] = qr_.astype(np.float32)
+        raw["hands_meanl"] = (0.1 * rng.standard_normal(45)
+                              ).astype(np.float32)
+        raw["hands_meanr"] = (0.1 * rng.standard_normal(45)
+                              ).astype(np.float32)
+    return _build(raw, model_type, "neutral", lsp, pose_format, dev,
+                  flat_hand_mean=flat_hand_mean)

@@ -11,6 +11,8 @@ where H0 (K,24,4), Hb (K,24,3,NB) and Hp (K,24,3,207) are constants
 built once from the assets.  Chain-derived slots (smpl body joints) come
 from the kinematic chain; rest joints are j0 + JB @ beta.  One fused
 "fold" matrix applies JB, Hb and Hp to [betas; posefeat] in one product.
+SMPL-H/X use the same algebra at 52/55 joints, with the SMPL-X
+expression folded as He/JE over `expr_dirs`.
 
 The constants are built on the host in float64 (BLAS products instead of
 the reference's float32 einsums) and stored as float32.
@@ -40,6 +42,12 @@ class JointModel:
     chain_idx: torch.Tensor   # (K,) int64: source chain joint (0 if none)
     chain_mask: torch.Tensor  # (K,) 1.0 where chain-derived
     fold: torch.Tensor        # (J*3 + K*J*3, NB + 207)
+    # SMPL-X expression fold (None otherwise), as Hb/JB over expr_dirs.
+    He: Optional[torch.Tensor] = None   # (K, J, 3, NE)
+    JE: Optional[torch.Tensor] = None   # (J, 3, NE)
+    # Hand PCA shared with the full assets (for the pose assembly).
+    hand_components: Optional[torch.Tensor] = None  # (2, C, 45)
+    hand_means: Optional[torch.Tensor] = None       # (2, 45)
     parents: Tuple[int, ...] = ()
     model_type: str = "smpl"
     # Per-device constants of the CUDA kernel (ops/joint_kernel.py),
@@ -126,10 +134,19 @@ def build_joint_model(assets: SMPLAssets) -> JointModel:
         return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32,
                                device=dev)
 
+    He = JE = None
+    if assets.expr_dirs is not None:
+        Ed = host(assets.expr_dirs)                        # (V, 3, NE)
+        NE = Ed.shape[-1]
+        He = t((GW @ Ed.reshape(V, 3 * NE)).reshape(K, nj, 3, NE))
+        JE = t((JR @ Ed.reshape(V, 3 * NE)).reshape(nj, 3, NE))
+
     return JointModel(
         H0=t(H0), Hb=t(Hb), Hp=t(Hp), j0=t(j0), JB=t(JB),
         chain_idx=torch.as_tensor(np.maximum(chain_idx, 0), device=dev),
-        chain_mask=t(chain_mask), fold=t(fold),
+        chain_mask=t(chain_mask), fold=t(fold), He=He, JE=JE,
+        hand_components=assets.hand_components,
+        hand_means=assets.hand_means,
         parents=tuple(assets.parents), model_type=assets.model_type)
 
 
@@ -157,6 +174,10 @@ def joint_forward(jm: JointModel, params: SMPLParams,
     v = torch.cat([betas, pf], dim=-1) @ jm.fold.T          # (B, rows)
     j_rest = jm.j0 + v[:, :nj * 3].reshape(B, nj, 3)
     off = v[:, nj * 3:].reshape(B, K, nj, 3)
+    if params.expression is not None and jm.He is not None:
+        expr = params.expression.to(dtype)
+        j_rest = j_rest + torch.einsum("jce,be->bjc", jm.JE, expr)
+        off = off + torch.einsum("kjce,be->bkjc", jm.He, expr)
 
     posed_joints, A = _rigid_chain(rot_mats, j_rest, jm.parents,
                                    params.scale)

@@ -2,8 +2,8 @@
 
 The learnable per-body `scale` multiplies the root transform's rotation
 block, as the reference does (`lbs.py:348`).  Every function takes a
-leading frame axis B.  Only smpl and smpllsp are ported; for those the
-69-dim body pose is the whole chain pose.
+leading frame axis B.  SMPL-H and SMPL-X assemble their chain pose from
+the body pose and the optional hand, face and expression blocks.
 """
 
 from __future__ import annotations
@@ -32,6 +32,12 @@ class SMPLAssets:
     joint_map: torch.Tensor        # (K,) int64
     lsp_regressor: Optional[torch.Tensor] = None  # (14, V) for smpllsp
     joint_model: Optional[object] = None  # models.joint_model.JointModel
+    # SMPL-H / SMPL-X only: the full MANO PCA bases [left, right] (the
+    # energy picks how many components to fit), the hand means (zeros
+    # when flat_hand_mean) and the SMPL-X expression blend shapes.
+    hand_components: Optional[torch.Tensor] = None  # (2, C, 45)
+    hand_means: Optional[torch.Tensor] = None       # (2, 45)
+    expr_dirs: Optional[torch.Tensor] = None        # (V, 3, NE)
     parents: Tuple[int, ...] = J.SMPL_PARENTS
     model_type: str = "smpl"
     gender: str = "neutral"
@@ -43,6 +49,10 @@ class SMPLAssets:
     @property
     def num_betas(self) -> int:
         return self.shapedirs.shape[-1]
+
+    @property
+    def num_expr(self) -> int:
+        return 0 if self.expr_dirs is None else self.expr_dirs.shape[-1]
 
     @property
     def device(self) -> torch.device:
@@ -58,13 +68,24 @@ class SMPLAssets:
 
 @dataclasses.dataclass
 class SMPLParams:
-    """Per-body parameters with a leading frame axis B."""
+    """Per-body parameters with a leading frame axis B.
+
+    The SMPL-H / SMPL-X blocks are optional (None behaves as zeros):
+    hand poses are MANO PCA coefficients (B, C) or raw axis-angle
+    (B, 45), expression is (B, NE), the face poses are (B, 3).
+    """
 
     betas: torch.Tensor          # (B, NB)
     global_orient: torch.Tensor  # (B, 3)
     body_pose: torch.Tensor      # (B, 69)
     transl: torch.Tensor         # (B, 3)
     scale: torch.Tensor          # (B,)
+    left_hand_pose: Optional[torch.Tensor] = None   # (B, C) or (B, 45)
+    right_hand_pose: Optional[torch.Tensor] = None  # (B, C) or (B, 45)
+    expression: Optional[torch.Tensor] = None       # (B, NE)
+    jaw_pose: Optional[torch.Tensor] = None         # (B, 3)
+    leye_pose: Optional[torch.Tensor] = None        # (B, 3)
+    reye_pose: Optional[torch.Tensor] = None        # (B, 3)
 
     @classmethod
     def zeros(cls, batch: int = 1, num_betas: int = 10,
@@ -76,18 +97,62 @@ class SMPLParams:
                    scale=torch.ones((batch,), dtype=dtype, device=device))
 
 
-def _check_ported(model_type: str) -> None:
-    if model_type not in ("smpl", "smpllsp"):
-        raise NotImplementedError(
-            f"model type {model_type!r} is not ported yet (SMPL-H/X hand, "
-            "face and expression blocks): the port covers smpl and smpllsp")
+# SMPLParams' optional SMPL-H/X blocks.
+TAIL_FIELDS = ("left_hand_pose", "right_hand_pose", "expression",
+               "jaw_pose", "leye_pose", "reye_pose")
+NUM_HAND_JOINTS = 15           # per hand (MANO), SMPL-H/X
+HAND_AA = 3 * NUM_HAND_JOINTS  # 45
+BODY63 = 63                    # 21 body joints for SMPL-H/X
+
+
+def _hand_aa(model, block: Optional[torch.Tensor], side: int,
+             like: torch.Tensor) -> torch.Tensor:
+    """One hand's (B, 45) axis-angle from its parameter block: PCA
+    coefficients decoded through the MANO components
+    (`body_models.py:593-596`), or a (B, 45) block taken as raw
+    axis-angle.  The hand mean is always added (zeros when the model was
+    loaded with flat_hand_mean)."""
+    if block is None:
+        aa = like.new_zeros(like.shape[:-1] + (HAND_AA,))
+    elif block.shape[-1] == HAND_AA:
+        aa = block
+    else:
+        aa = block @ model.hand_components[side, :block.shape[-1]]
+    if model.hand_means is not None:
+        aa = aa + model.hand_means[side]
+    return aa
 
 
 def assemble_chain_pose(assets, params: SMPLParams,
                         pose: torch.Tensor) -> torch.Tensor:
-    """Full chain pose from the body pose: the identity for smpl/smpllsp."""
-    _check_ported(assets.model_type)
-    return pose
+    """Full (B, (J-1)*3) chain pose from the body pose and the optional
+    blocks.  `assets` is any carrier of `.parents`, `.model_type`,
+    `.hand_components`, `.hand_means` (SMPLAssets or a JointModel).
+
+    smpl/smpllsp: the 69-dim body pose is the chain pose.  SMPL-H:
+    [body(63), left hand(45), right hand(45)]; SMPL-X: [body(63), jaw,
+    leye, reye, hands(90)] (`body_models.py:596-608,903-910`).  A pose
+    already of chain length passes through untouched.
+
+    The reference's scaled SMPL-H/X forwards call `lbs()` without its
+    `scale` (`body_models_scale.py:622,935`); this is the intended
+    semantics: the stock smplx assembly with the scaled root.
+    """
+    need = (len(assets.parents) - 1) * 3
+    if assets.model_type in ("smpl", "smpllsp") or pose.shape[-1] == need:
+        return pose
+    body = pose[..., :BODY63]
+    if body.shape[-1] < BODY63:
+        body = torch.cat([body, body.new_zeros(
+            body.shape[:-1] + (BODY63 - body.shape[-1],))], dim=-1)
+    pieces = [body]
+    if assets.model_type == "smplx":
+        for blk in (params.jaw_pose, params.leye_pose, params.reye_pose):
+            pieces.append(blk if blk is not None
+                          else body.new_zeros(body.shape[:-1] + (3,)))
+    pieces.append(_hand_aa(assets, params.left_hand_pose, 0, body))
+    pieces.append(_hand_aa(assets, params.right_hand_pose, 1, body))
+    return torch.cat(pieces, dim=-1)
 
 
 def _rigid_chain(rot_mats: torch.Tensor, joints: torch.Tensor,
@@ -137,11 +202,15 @@ def _rigid_chain(rot_mats: torch.Tensor, joints: torch.Tensor,
 
 
 def lbs(assets: SMPLAssets, betas: torch.Tensor, full_pose: torch.Tensor,
-        scale: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        scale: torch.Tensor, expression: Optional[torch.Tensor] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Linear blend skinning for a batch of bodies.
 
     Args:
-      betas: (B, NB); full_pose: (B, J*3) axis-angle; scale: (B,).
+      betas: (B, NB); full_pose: (B, J*3) axis-angle; scale: (B,);
+      expression: optional (B, NE) SMPL-X coefficients through
+        `expr_dirs`, as the reference's [betas, expression] against the
+        full shapedirs (`body_models.py:914-921`).
 
     Returns:
       verts (B, V, 3), posed joints (B, J, 3), both before translation.
@@ -151,6 +220,9 @@ def lbs(assets: SMPLAssets, betas: torch.Tensor, full_pose: torch.Tensor,
     dtype = assets.v_template.dtype
     v_shaped = assets.v_template + torch.einsum(
         "vct,bt->bvc", assets.shapedirs, betas.to(dtype))
+    if expression is not None and assets.expr_dirs is not None:
+        v_shaped = v_shaped + torch.einsum(
+            "vce,be->bvc", assets.expr_dirs, expression.to(dtype))
     j_rest = torch.einsum("jv,bvc->bjc", assets.j_regressor, v_shaped)
 
     rot_mats = rodrigues(full_pose.reshape(B, nj, 3))
@@ -174,12 +246,14 @@ def smpl_forward(assets: SMPLAssets, params: SMPLParams,
 
     LBS -> (LSP joint regression for smpllsp) -> append surface keypoints
     -> gather into annotation order -> add translation.  `body_pose`
-    overrides `params.body_pose` (the VPoser-decoded pose).
+    overrides `params.body_pose` (the VPoser-decoded pose); SMPL-H/X
+    assemble the chain pose with `assemble_chain_pose`.
     """
     pose = body_pose if body_pose is not None else params.body_pose
     pose = assemble_chain_pose(assets, params, pose)
     full_pose = torch.cat([params.global_orient, pose], dim=-1)
-    verts, posed_joints = lbs(assets, params.betas, full_pose, params.scale)
+    verts, posed_joints = lbs(assets, params.betas, full_pose, params.scale,
+                              expression=params.expression)
 
     if assets.model_type == "smpllsp":
         base_joints = torch.einsum("jv,bvc->bjc", assets.lsp_regressor, verts)

@@ -5,8 +5,12 @@ Six cameras (by default) orbit the origin at radius 4 and height 0.3,
 all looking at the origin; every frame draws its own true pose latent,
 shape, orientation, translation and scale from numpy seeded with `seed`,
 in the same order as the JAX function, and its observations are the
-exact projections of the synthetic body's joints.  `make_sequence`
-moves each frame's truth on by a seeded drift per time step.
+exact projections of the synthetic body's joints.  SMPL-H and SMPL-X
+truths add hand PCA (and, for SMPL-X, expression and jaw) blocks, as
+JAX's own SMPL-H/X fit tests do (`tests/test_smplx_family.py:225-265`).
+`make_sequence` moves each frame's truth on by a seeded drift per time
+step; `make_person_sequence` is one person's frames with one shared shape
+(`tests/test_schur.py:31-63`).
 """
 
 from __future__ import annotations
@@ -65,20 +69,45 @@ def true_params(num_frames: int, seed: int
             {k: np.asarray(v, np.float32) for k, v in cols.items()})
 
 
+def true_tail(num_frames: int, seed: int, model_type: str) -> dict:
+    """Per-frame SMPL-H/X truth blocks (empty for smpl/smpllsp): hand PCA
+    (F, 6) ~ 0.6 N(0, 1) for smplh and smplx; for smplx also expression
+    (F, 10) ~ 0.5 N(0, 1), a jaw pose (F, 3) around (0.15, 0, 0.05) and
+    zero eye poses.  Drawn from their own stream, so the body draws of
+    `true_params` do not change."""
+    if model_type not in ("smplh", "smplx"):
+        return {}
+    rng = np.random.default_rng(seed + 1000)
+    F = max(1, num_frames)
+    out = {"left_hand_pose": 0.6 * rng.standard_normal((F, 6)),
+           "right_hand_pose": 0.6 * rng.standard_normal((F, 6))}
+    if model_type == "smplx":
+        out["expression"] = 0.5 * rng.standard_normal((F, 10))
+        out["jaw_pose"] = (np.asarray([0.15, 0.0, 0.05])
+                           + 0.05 * rng.standard_normal((F, 3)))
+        out["leye_pose"] = np.zeros((F, 3))
+        out["reye_pose"] = np.zeros((F, 3))
+    return {k: v.astype(np.float32) for k, v in out.items()}
+
+
 def observe(assets: SMPLAssets, vposer_w: vposer_lib.VPoserWeights,
             cam: Camera, z: np.ndarray, cols: dict) -> Observations:
     """Exact projections (B, V, K, 2) of the bodies with latents z (B, 32)
-    and the parameters `cols`, all views live, unit confidences."""
+    and the parameters `cols` (with any SMPL-H/X blocks of `true_tail`),
+    all views live, unit confidences."""
     dev = cam.rotation.device
 
     def t(a):
         return torch.as_tensor(a, dtype=torch.float32, device=dev)
 
     B, V = z.shape[0], cam.rotation.shape[0]
+    tail = {k: t(v) for k, v in cols.items()
+            if k not in ("betas", "global_orient", "transl", "scale")}
     true = SMPLParams(betas=t(cols["betas"]),
                       global_orient=t(cols["global_orient"]),
                       body_pose=torch.zeros((B, 69), device=dev),
-                      transl=t(cols["transl"]), scale=t(cols["scale"]))
+                      transl=t(cols["transl"]), scale=t(cols["scale"]),
+                      **tail)
     body_pose = vposer_lib.decode(vposer_w, t(z))
     _, joints = smpl_forward(assets, true, body_pose)
     gt2d = project_points(cam, joints).transpose(0, 1).contiguous()
@@ -95,14 +124,56 @@ def make_problem(num_views: int = 6, num_frames: int = 1, seed: int = 0,
                  ) -> Tuple[SMPLAssets, vposer_lib.VPoserWeights, Camera,
                             Observations]:
     """(assets with the reduced joint model, VPoser weights, cameras,
-    observations (num_frames, V, K, ...)) on `device`; smpl (K=17, coco)
-    or smpllsp (K=14, the LSP regressor)."""
+    observations (num_frames, V, K, ...)) on `device`: smpl (K=17, coco17),
+    smpllsp (K=14, the LSP regressor), smplh (K=17, coco17) or smplx
+    (K=25, OpenPose BODY_25), the last two with `true_tail`'s blocks in
+    the truth."""
     dev = resolve_device(device)
     assets = with_joint_model(synthetic_smpl(model_type, device=dev))
     vposer_w = vposer_lib.load_npz(VPOSER_NPZ, device=dev)
     cam = orbit_cameras(num_views, dev)
     z_np, cols = true_params(num_frames, seed)
+    cols.update(true_tail(num_frames, seed, model_type))
     return assets, vposer_w, cam, observe(assets, vposer_w, cam, z_np, cols)
+
+
+def person_sequence_truth(num_frames: int, seed: int
+                          ) -> Tuple[np.ndarray, dict]:
+    """One person's truth over `num_frames` frames, in the draw order of
+    JAX's Schur test fixture (`tests/test_schur.py:31-63`): shared betas
+    ~ 0.5 N(0, 1) and scale 1.15, then a latent ~ 0.3 N(0, 1) per frame;
+    frame f has orientation (0.1 w, 0.3, -0.1) and translation
+    (0.05 w, -0.2, 0.3) with w = f for f <= 16 and a triangle wave of
+    period 32 beyond, so a long sequence stays inside the camera ring."""
+    rng = np.random.default_rng(seed)
+    betas = 0.5 * rng.standard_normal(10)
+    zs = [0.3 * rng.standard_normal(32) for _ in range(num_frames)]
+    f = np.arange(num_frames) % 32
+    w = np.minimum(f, 32 - f).astype(np.float64)
+    cols = {"betas": np.tile(betas, (num_frames, 1)),
+            "global_orient": np.stack([0.1 * w, np.full_like(w, 0.3),
+                                       np.full_like(w, -0.1)], -1),
+            "transl": np.stack([0.05 * w, np.full_like(w, -0.2),
+                                np.full_like(w, 0.3)], -1),
+            "scale": np.full(num_frames, 1.15)}
+    return (np.asarray(zs, np.float32),
+            {k: np.asarray(v, np.float32) for k, v in cols.items()})
+
+
+def make_person_sequence(num_frames: int, num_views: int = 6, seed: int = 0,
+                         device: DeviceLike = None
+                         ) -> Tuple[SMPLAssets, vposer_lib.VPoserWeights,
+                                    Camera, Observations, dict]:
+    """One smpl person seen over `num_frames` frames with one shape:
+    (assets with the joint model, VPoser weights, cameras, observations
+    (F, V, K, ...), the truth `cols` of `person_sequence_truth`)."""
+    dev = resolve_device(device)
+    assets = with_joint_model(synthetic_smpl(device=dev))
+    vposer_w = vposer_lib.load_npz(VPOSER_NPZ, device=dev)
+    cam = orbit_cameras(num_views, dev)
+    z_np, cols = person_sequence_truth(num_frames, seed)
+    return assets, vposer_w, cam, observe(assets, vposer_w, cam, z_np,
+                                          cols), cols
 
 
 def make_sequence(num_views: int = 6, num_seqs: int = 1, steps: int = 2,

@@ -17,7 +17,9 @@ points engine's field (plain PyTorch on both devices) holds the CPU's
 inside set at atol 1e-5, and the fused fit and an L-BFGS stage the
 CPU's stage losses at rtol 1e-3.  The no-VPoser `residual_jacobian`
 (GMM prior, 86 columns) holds its plain-kernel twin at RTOL and the
-joint-Jacobian test's rtol 2e-4 on J.
+joint-Jacobian test's rtol 2e-4 on J.  SMPL-H/X fit stages and the
+Schur sequence fit hold the CPU's losses at rtol 1e-3 (the Schur shared
+block at rtol 1e-3 and atol 1e-4: its betas are near 0).
 """
 
 import numpy as np
@@ -239,3 +241,68 @@ def test_lbfgs_stage_on_card(cuda_device):
         assert res.lm_iters.tolist() == [[3]] * 2
         losses.append(res.stage_losses.cpu())
     torch.testing.assert_close(losses[0], losses[1], rtol=1e-3, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_type", ["smplh", "smplx"])
+def test_family_fit_on_card(cuda_device, model_type):
+    """One LM stage (chol, classic, 3 iterations) of SMPL-H / SMPL-X with
+    every tail block on 2 frames: the card against the CPU, stage losses
+    at rtol 1e-3; no kernel launches (the AD Jacobian, as in JAX)."""
+    from mvsmplfitting_tpu_torch.fitting.energy import EnergySpec
+    from mvsmplfitting_tpu_torch.fitting.lm import LMOptions
+    from mvsmplfitting_tpu_torch.fitting.stages import FitConfig
+    from mvsmplfitting_tpu_torch.parallel.batched import (
+        BatchedFitInputs, batched_fit_frames)
+    from mvsmplfitting_tpu_torch.synthetic import make_problem
+
+    spec = (EnergySpec(hand_dim=6, num_expr=10, opt_face=True)
+            if model_type == "smplx" else EnergySpec(hand_dim=6))
+    cfg = FitConfig(spec=spec, pose_weights=(57.4,), shape_weights=(10.0,),
+                    coll_weights=(0.0,),
+                    lm=LMOptions(max_iters=3, linsolve="chol",
+                                 speculative=False))
+    cpu = make_problem(6, 2, seed=1, device="cpu", model_type=model_type)
+    losses = []
+    for d in (cuda_device, torch.device("cpu")):
+        assets, vw, cam, obs = (v.to(d) for v in cpu)
+        jb, vb = JK.LAUNCHES, VK.LAUNCHES
+        res = batched_fit_frames(
+            cfg, assets, cam, BatchedFitInputs(obs, torch.full(
+                (2,), 1080.0, device=d)), vposer_w=vw, device=d)
+        assert (JK.LAUNCHES, VK.LAUNCHES) == (jb, vb)
+        assert res.params.left_hand_pose.shape == (2, 6)
+        losses.append(res.stage_losses.cpu())
+    torch.testing.assert_close(losses[0], losses[1], rtol=1e-3, atol=0.0)
+
+
+@pytest.mark.cuda
+def test_schur_on_card(cuda_device):
+    """`schur_sequence_fit` (one stage, chol, 3 LM iterations) on a
+    4-frame sequence: B1 and B2 once per iteration on the card, and the
+    card against the CPU (losses rtol 1e-3; the shared block rtol 1e-3,
+    atol 1e-4, its betas being near 0)."""
+    from mvsmplfitting_tpu_torch.fitting.initialize import init_guess
+    from mvsmplfitting_tpu_torch.fitting.lm import LMOptions
+    from mvsmplfitting_tpu_torch.fitting.stages import FitConfig
+    from mvsmplfitting_tpu_torch.parallel.schur import schur_sequence_fit
+    from mvsmplfitting_tpu_torch.synthetic import make_person_sequence
+
+    cfg = FitConfig(pose_weights=(57.4,), shape_weights=(10.0,),
+                    coll_weights=(0.0,),
+                    lm=LMOptions(max_iters=3, linsolve="chol",
+                                 speculative=False))
+    cpu = make_person_sequence(4, seed=1, device="cpu")[:4]
+    out = []
+    for d in (cuda_device, torch.device("cpu")):
+        assets, vw, cam, obs = (v.to(d) for v in cpu)
+        g = init_guess(assets, cam, obs.gt2d, obs.conf, obs.view_mask)
+        jb, vb = JK.LAUNCHES, VK.LAUNCHES
+        _, _, losses, shared, iters = schur_sequence_fit(
+            cfg, assets, cam, obs, g.params, g.z, vposer_w=vw, device=d)
+        launched = (JK.LAUNCHES - jb, VK.LAUNCHES - vb)
+        assert launched == ((3, 3) if d.type == "cuda" else (0, 0))
+        assert iters == [3]
+        out.append((losses.cpu(), shared.cpu()))
+    torch.testing.assert_close(out[0][0], out[1][0], rtol=1e-3, atol=0.0)
+    torch.testing.assert_close(out[0][1], out[1][1], rtol=1e-3, atol=1e-4)

@@ -195,8 +195,8 @@ def test_joint_sets(model_type):
         np.testing.assert_array_equal(
             tj.default_joint_weights(17, fmt, use_hip),
             jj.default_joint_weights(17, fmt, use_hip))
-    with pytest.raises(NotImplementedError):
-        tj.parents_for_model("smplx")
+    for family in ("smplh", "smplx"):
+        assert tj.parents_for_model(family) == jj.parents_for_model(family)
 
 
 def test_priors():

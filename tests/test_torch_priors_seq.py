@@ -485,5 +485,18 @@ def test_load_smpl_matches_jax(tmp_path, monkeypatch, layout):
             assert g is None, f
             continue
         assert np.array_equal(g.numpy(), np.asarray(w)), f
-    with pytest.raises(NotImplementedError):
-        TA.load_smpl(where, "smplh", device="cpu")
+    # The same file read as SMPL-H gives JAX's assets; a folder without
+    # an smplh model raises as JAX does.
+    try:
+        want = JA.load_smpl(where, "smplh")
+    except FileNotFoundError:
+        with pytest.raises(FileNotFoundError):
+            TA.load_smpl(where, "smplh", device="cpu")
+        return
+    got = TA.load_smpl(where, "smplh", device="cpu")
+    assert got.parents == want.parents and got.model_type == "smplh"
+    for f in ("v_template", "shapedirs", "posedirs", "j_regressor",
+              "lbs_weights", "faces", "extra_joint_ids", "joint_map"):
+        assert np.array_equal(getattr(got, f).numpy(),
+                              np.asarray(getattr(want, f))), f
+    assert got.hand_components is None and want.hand_components is None

@@ -43,6 +43,9 @@ def jax_joint_model(port_jm):
     from mvsmplfitting_tpu.models.joint_model import JointModel
     g = {f: jnp.asarray(getattr(port_jm, f).numpy())
          for f in ("H0", "Hb", "Hp", "j0", "JB", "fold", "chain_mask")}
+    for f in ("He", "JE", "hand_components", "hand_means"):
+        v = getattr(port_jm, f)
+        g[f] = None if v is None else jnp.asarray(v.numpy())
     return JointModel(chain_idx=jnp.asarray(port_jm.chain_idx.numpy(),
                                             jnp.int32),
                       parents=port_jm.parents,

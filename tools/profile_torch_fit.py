@@ -1,7 +1,9 @@
 """Where the time of the PyTorch port's fits goes, on one GPU.
 
     python3 tools/profile_torch_fit.py [--frames 512] [--iters N] \
-        [--classic] [--fused] [--solver lm|lbfgs|adam]
+        [--classic] [--fused] [--solver lm|lbfgs|adam] \
+        [--model smpl|smplh|smplx]
+    python3 tools/profile_torch_fit.py --schur [--frames 512]
     python3 tools/profile_torch_fit.py --multi [--grid 128]
     python3 tools/profile_torch_fit.py --multi --engine points \
         [--points-jac ad|analytic]
@@ -10,7 +12,10 @@ Runs the port's main path (`batched_fit_frames`, 6 views, smpl, library
 defaults; `--classic` turns speculative LM off, `--fused` runs all stages
 in one LM loop, `FitConfig.fused`, which is classic LM; `--solver lbfgs`
 or `adam` runs `chip_smoke.py` [lbfgs]'s or [grad]'s configuration
-instead; `--iters` is the per-stage budget, by default 40 LM iterations,
+instead; `--model smplx|smplh` fits `chip_smoke.py` [smplx]'s or
+[smplh]'s configuration (every tail block, the AD Jacobian); `--schur`
+runs [schur]'s shared-shape sequence fit (`schur_sequence_fit` on
+`synthetic.make_person_sequence`); `--iters` is the per-stage budget, by default 40 LM iterations,
 120 L-BFGS iterations or 150 adam steps: the profiler records every op,
 so profile those solvers over a few iterations), or with `--multi`
 the two-person collision fit on the dx0=0.2 fixture (`fit_people`):
@@ -57,6 +62,7 @@ LAYERS = (
     ("fitting.energy", "total_energy"),
     ("fitting.energy", "_analytic_core"),
     ("fitting.lm", "_normal_step"),
+    ("fitting.lm", "_spd_inv"),
     ("fitting.lbfgs", "_strong_wolfe"),
     ("fitting.lbfgs", "_direction"),
     ("fitting.gradient", "_update"),
@@ -102,6 +108,9 @@ def _wrap_layers():
         return (timed(residual_fn, "points_forms.residual_fn"),
                 timed(jac_fn, "points_forms.jac_fn"))
     multi_person.make_points_forms = make_points_forms
+    from mvsmplfitting_tpu_torch.parallel import schur
+    schur._spd_inv = lm._spd_inv
+    schur.ad_jacobian = lm.ad_jacobian
 
 
 def _category(name: str) -> str:
@@ -139,6 +148,11 @@ def main() -> int:
                     default="lm", help="the B-frame fit's solver: LM, or "
                     "chip_smoke.py [lbfgs]'s (smpllsp, parity options) or "
                     "[grad]'s (adam) configuration")
+    ap.add_argument("--model", choices=("smpl", "smplh", "smplx"),
+                    default="smpl", help="the B-frame LM fit's body model "
+                    "(smplh/smplx: chip_smoke.py [smplh]/[smplx]'s spec)")
+    ap.add_argument("--schur", action="store_true",
+                    help="profile the shared-shape sequence fit instead")
     ap.add_argument("--multi", action="store_true",
                     help="profile the two-person collision fit instead")
     ap.add_argument("--grid", type=int, default=128,
@@ -158,7 +172,7 @@ def main() -> int:
     _wrap_layers()
     from mvsmplfitting_tpu_torch.device import resolve_device
     from mvsmplfitting_tpu_torch.fitting.lm import LMOptions
-    from mvsmplfitting_tpu_torch.fitting.stages import FitConfig
+    from mvsmplfitting_tpu_torch.fitting.stages import FitConfig, FitResult
     from mvsmplfitting_tpu_torch.parallel.batched import (
         BatchedFitInputs, batched_fit_frames)
     from mvsmplfitting_tpu_torch.synthetic import make_problem
@@ -194,11 +208,29 @@ def main() -> int:
                                 points_jac=args.points_jac, device=dev)
             torch.cuda.synchronize()
             return res
+    elif args.schur:
+        from mvsmplfitting_tpu_torch.fitting.initialize import init_guess
+        from mvsmplfitting_tpu_torch.parallel.schur import schur_sequence_fit
+        from mvsmplfitting_tpu_torch.synthetic import make_person_sequence
+        B = args.frames
+        assets, vw, cam, obs, _ = make_person_sequence(B, seed=0, device=dev)
+        cfg = FitConfig(lm=LMOptions(max_iters=args.iters or 40))
+
+        def fit():
+            g = init_guess(assets, cam, obs.gt2d, obs.conf, obs.view_mask)
+            _, _, losses, _, iters = schur_sequence_fit(
+                cfg, assets, cam, obs, g.params, g.z, vposer_w=vw,
+                device=dev)
+            torch.cuda.synchronize()
+            return FitResult(params=None, z=None, body_pose=None,
+                             loss=losses, stage_losses=None,
+                             lm_iters=torch.tensor([iters]))
     else:
+        from mvsmplfitting_tpu_torch.fitting.energy import EnergySpec
         from mvsmplfitting_tpu_torch.fitting.gradient import GradientOptions
         from mvsmplfitting_tpu_torch.fitting.lbfgs import LBFGSOptions
         B = args.frames
-        model = "smpllsp" if args.solver == "lbfgs" else "smpl"
+        model = "smpllsp" if args.solver == "lbfgs" else args.model
         assets, vw, cam, obs = make_problem(6, B, seed=0, device=dev,
                                             model_type=model)
         batch = BatchedFitInputs(obs, torch.full((B,), 1080.0, device=dev))
@@ -209,7 +241,12 @@ def main() -> int:
             cfg = FitConfig(solver="adam", grad=GradientOptions(
                 lr=1e-2, max_iters=args.iters or 150))
         else:
-            cfg = FitConfig(lm=LMOptions(max_iters=args.iters or 40,
+            spec = EnergySpec(**{
+                "smpl": {}, "smplh": dict(hand_dim=6),
+                "smplx": dict(hand_dim=6, num_expr=10, opt_face=True),
+            }[model])
+            cfg = FitConfig(spec=spec,
+                            lm=LMOptions(max_iters=args.iters or 40,
                                          speculative=not args.classic),
                             fused=args.fused)
 
@@ -223,7 +260,8 @@ def main() -> int:
     t0 = time.perf_counter()
     res = fit()
     wall = time.perf_counter() - t0
-    # --multi: the refinement's iterations (the solo fits' are not kept).
+    # --multi: the refinement's iterations (the solo fits' are not kept);
+    # --schur: the sequence's LM iterations.
     iters = int(res.lm_iters.amax(dim=0).sum().item())
     print(json.dumps({"timed": {
         "frames": B, "wall_s": wall, "fps": B / wall, "lm_iterations": iters,
