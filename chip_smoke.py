@@ -117,18 +117,36 @@ Phases (each prints one line; any failure exits non-zero):
      sequence (4 stages of 3 chol iterations) on the card against the
      CPU, per-frame losses at rtol 1e-3, the shared block at rtol 1e-3
      and atol 1e-4 (betas near 0);
+ 19. [cli] the fitting CLI (`mvsmplfitting_tpu_torch.cli.main`) on
+     workspaces in the reference's layout (`synthetic.write_workspace`),
+     always with `--no_save_images`: `cfg_files/fit_batched.yaml` on 128
+     frames x 6 views in this process (B1 and B2 launches >= the LM
+     iterations, 128 pkls with the reference's keys and shapes and 128
+     meshes of 6890 vertices, median reprojection px < 2, the pkls equal
+     to `batched_fit_frames` on the same session's observations at rtol
+     1e-5 or the spread of two library calls if that is larger, the
+     dumped `conf.yaml` read back equal; the session, read, fit and write
+     seconds, frames/s and the keypoint loader's route);
+     `cfg_files/fit_seq.yaml` on 4 frames of a sequence through a
+     subprocess (frames 1-3 warm-started; per-frame seconds and px), then
+     again with `--resume` (all frames skipped, no file touched);
+     `cfg_files/fit_multi_person_sdf.yaml` on one frame of the two-person
+     fixture (dx0=0.2): one pkl per person in the truth's x order, the
+     refined collision sums below the solo fits';
 then the total seconds, the card line, the kernels JSON line and the
 result line.  Each path's launch counters are set to 0 just before it
 and read just after; the JSON line gives every kernel's launches summed
 over [fit], [collide], [multi], [points] (both runs), [fused], [lbfgs],
-[grad], [gmm], [seq] (all steps), [adjust], [smplx], [smplh] and
-[schur].
+[grad], [gmm], [seq] (all steps), [adjust], [smplx], [smplh], [schur]
+and [cli] (its batched and two-person runs; the sequence subprocess's
+launches are its own).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -155,6 +173,9 @@ SEQ_STEPS = 4
 B_SMPLH = 64           # [smplh]'s frames
 B_SCHUR = 512          # [schur]'s sequence length
 G_FIT = 128            # the reference's production grid (fitting.py:374)
+B_CLI = 128            # [cli]: cfg_files/fit_batched.yaml's batch_frames
+SEQ_CLI = 4            # [cli]: the sequence run's frames
+ROOT = os.path.dirname(os.path.abspath(__file__))
 G_CHECK = 64           # the grid of the kernel-vs-plain check
 
 
@@ -1333,6 +1354,262 @@ def schur_phase(dev, launches: dict) -> None:
         tolerance="shared rtol 1e-3 atol 1e-4, losses rtol 1e-3")
 
 
+def _tree_mtimes(root: str) -> dict:
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            path = os.path.join(d, n)
+            out[os.path.relpath(path, root)] = os.stat(path).st_mtime_ns
+    return out
+
+
+def _run_cli(argv, timer=None):
+    """`cli.main.main(argv)` in this process; (return code, stdout)."""
+    import contextlib
+    import io
+
+    from mvsmplfitting_tpu_torch.cli import main as cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv, timer=timer)
+    return rc, buf.getvalue()
+
+
+def cli_phase(dev, launches: dict) -> None:
+    """[cli]: the fitting CLI on workspaces in the reference's layout
+    (`synthetic.write_workspace`): batched mode at full width in this
+    process, sequence mode and `--resume` through a subprocess, the
+    two-person mode in this process."""
+    import tempfile
+
+    from mvsmplfitting_tpu_torch.config import load_config
+    from mvsmplfitting_tpu_torch.data import native
+    from mvsmplfitting_tpu_torch.data.dataset import (cat_observations,
+                                                      frame_to_observations)
+    from mvsmplfitting_tpu_torch.data.results import (load_result_pkl,
+                                                      zero_extremities)
+    from mvsmplfitting_tpu_torch.fitting import energy as E
+    from mvsmplfitting_tpu_torch.fitting.multi_person import fit_people
+    from mvsmplfitting_tpu_torch.models import vposer as V
+    from mvsmplfitting_tpu_torch.models.smpl import SMPLParams, smpl_forward
+    from mvsmplfitting_tpu_torch.ops import joint_kernel as JK
+    from mvsmplfitting_tpu_torch.ops import sdf as S
+    from mvsmplfitting_tpu_torch.ops import sdf_kernel as SK
+    from mvsmplfitting_tpu_torch.ops import vposer_kernel as VK
+    from mvsmplfitting_tpu_torch.parallel.batched import (BatchedFitInputs,
+                                                          batched_fit_frames)
+    from mvsmplfitting_tpu_torch.session import build_session
+    from mvsmplfitting_tpu_torch.synthetic import write_workspace
+    from mvsmplfitting_tpu_torch.utils.profiling import StageTimer
+
+    keys = {"betas": (1, 10), "global_orient": (1, 3), "transl": (1, 3),
+            "scale": (1, 1), "body_pose": (1, 69), "pose": (1, 72),
+            "pose_embedding": (1, 32)}
+    with tempfile.TemporaryDirectory(prefix="mvsf_cli_") as tmp:
+        absent = os.path.join(tmp, "absent")
+
+        def argv(config, ws, out, *extra):
+            return ["--config", os.path.join(ROOT, "cfg_files", config),
+                    "--data_folder", ws["data_folder"], "--cam_param",
+                    ws["cam_param"], "--output_folder", out,
+                    "--model_folder", absent, "--prior_folder", absent,
+                    "--no_save_images", "--device", dev.type, *extra]
+
+        # ---- batched mode at full width --------------------------------
+        t0 = time.perf_counter()
+        ws = write_workspace(os.path.join(tmp, "ws"), num_frames=B_CLI,
+                             model_type="smpllsp", device=dev)
+        ws_s = time.perf_counter() - t0
+        out = os.path.join(tmp, "batched")
+        args = argv("fit_batched.yaml", ws, out)
+        timer = StageTimer()
+        torch.cuda.synchronize()
+        reset_launches(JK, VK, SK)
+        t0 = time.perf_counter()
+        rc, printed = _run_cli(args, timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_launches(JK, VK, SK)
+        launches["cli_batched"] = got
+        assert rc == 0, printed
+        spans = timer.totals()
+
+        # The same session's observations through the library, twice.
+        cfg = load_config(args[1], data_folder=ws["data_folder"],
+                          cam_param=ws["cam_param"], output_folder=out,
+                          model_folder=absent, prior_folder=absent,
+                          save_images=False)
+        back = load_config(os.path.join(out, "conf.yaml"))
+        assert dataclasses.asdict(back) == dataclasses.asdict(cfg), back
+        sess = build_session(cfg, device=dev)
+        frames = list(sess.dataset)
+        assert len(frames) == B_CLI and cfg.batch_frames == B_CLI
+        obs = cat_observations([frame_to_observations(
+            f, sess.joint_weights, device=dev) for f in frames])
+        batch = BatchedFitInputs(obs, torch.tensor(
+            [float(f.img_hw[0]) for f in frames], device=dev))
+        refs = []
+        for _ in range(2):
+            r = batched_fit_frames(sess.fit_config, sess.assets,
+                                   sess.cameras, batch, vposer_w=sess.vposer,
+                                   device=dev)
+            refs.append({
+                "loss": r.loss, "betas": r.params.betas,
+                "global_orient": r.params.global_orient,
+                "transl": r.params.transl, "scale": r.params.scale,
+                "pose_embedding": r.z,
+                "body_pose": torch.as_tensor(zero_extremities(
+                    r.body_pose.cpu().numpy()))})
+        lm_iters = int(r.lm_iters.amax(dim=0).sum().item())
+        refs = [{k: v.cpu() for k, v in ref.items()} for ref in refs]
+
+        def rel(a, b):
+            return ((a - b).abs().max() / b.abs().max().clamp_min(
+                1e-30)).item()
+
+        spread = max(rel(refs[0][k], refs[1][k]) for k in refs[0])
+        tol = max(1e-5, spread)
+        pkls = [load_result_pkl(os.path.join(
+            out, "results", ws["serial"], fr, "000.pkl"))
+            for fr in ws["frames"]]
+        for d in pkls:
+            assert sorted(d) == sorted(list(keys) + ["loss"]), sorted(d)
+            for k, shp in keys.items():
+                assert d[k].shape == shp and d[k].dtype == np.float32, k
+        cli_vals = {k: torch.as_tensor(np.stack(
+            [np.asarray(d[k], np.float32).reshape(-1) for d in pkls]))
+            for k in refs[0]}
+        cli_vals["scale"] = cli_vals["scale"][:, 0]
+        cli_vals["loss"] = cli_vals["loss"][:, 0]
+        assert bool(torch.isfinite(cli_vals["loss"]).all()), "non-finite"
+        cli_err = max(rel(cli_vals[k], refs[0][k]) for k in refs[0])
+        for k in refs[0]:
+            # rtol, with an atol of the same share of the key's largest
+            # magnitude (betas and poses sit near 0).
+            torch.testing.assert_close(
+                cli_vals[k], refs[0][k], rtol=tol,
+                atol=tol * refs[0][k].abs().max().item(), msg=k)
+        n_v = []
+        for fr in ws["frames"]:
+            with open(os.path.join(out, "meshes", ws["serial"], fr,
+                                   "000.obj"), "rb") as f:
+                data = f.read()
+            n_v.append(data.count(b"\nv ") + data.startswith(b"v "))
+        assert n_v == [6890] * B_CLI, set(n_v)
+        # The reprojection error of the CLI's own results.
+        x = E.pack(sess.fit_config.spec, SMPLParams(
+            betas=cli_vals["betas"], global_orient=cli_vals["global_orient"],
+            body_pose=torch.zeros((B_CLI, 69)), transl=cli_vals["transl"],
+            scale=cli_vals["scale"]), cli_vals["pose_embedding"]).to(dev)
+        px = E.reprojection_error_px(sess.fit_config.spec, sess.assets,
+                                     sess.cameras, obs, sess.vposer, x).cpu()
+        for name in ("joint_jacobian", "vposer_tail"):
+            assert got[name] >= lm_iters, (name, got, lm_iters)
+        assert px.median().item() < 2.0, px.median()
+        log("cli", mode="batched", config="fit_batched.yaml",
+            frames=B_CLI, views=6, model=cfg.model_type,
+            native_loader=native.available(), workspace_s=f"{ws_s:.3f}",
+            wall_s=f"{wall:.3f}", fps=f"{B_CLI / wall:.1f}",
+            session_s=f"{spans['session']:.3f}",
+            read_s=f"{spans['read']:.3f}", fit_s=f"{spans['fit']:.3f}",
+            write_s=f"{spans['write']:.3f}",
+            fit_fps=f"{B_CLI / spans['fit']:.1f}",
+            io_share=f"{(spans['read'] + spans['write']) / wall:.4f}",
+            lm_iterations=lm_iters,
+            median_final_loss=f"{cli_vals['loss'].median().item():.3f}",
+            median_reproj_px=f"{px.median().item():.4f}",
+            max_reproj_px=f"{px.max().item():.4f}",
+            library_spread_rel=f"{spread:.3e}",
+            cli_vs_library_rel=f"{cli_err:.3e}", tolerance=f"rtol {tol:.0e}",
+            conf_yaml="reads back equal",
+            launches=json.dumps(got).replace(" ", ""))
+
+        # ---- sequence mode in a subprocess, then --resume ---------------
+        ws = write_workspace(os.path.join(tmp, "ws_seq"), kind="sequence",
+                             num_frames=SEQ_CLI, model_type="smpllsp",
+                             device=dev)
+        out = os.path.join(tmp, "seq")
+        cmd = [sys.executable, "-m", "mvsmplfitting_tpu_torch.cli.main",
+               *argv("fit_seq.yaml", ws, out)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
+                              timeout=600)
+        wall = time.perf_counter() - t0
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        rows = re.findall(r"stages \[([^\]]*)\] final ([0-9.eE+-]+) reproj "
+                          r"([0-9.]+)px in ([0-9.]+)s", proc.stdout)
+        done = float(re.search(r"Processed \d+ frame\(s\) in ([0-9.]+)s",
+                               proc.stdout).group(1))
+        assert [len(r[0].split()) for r in rows] == [4] + [2] * (SEQ_CLI - 1)
+        # Frames 1.. warm-start: the sequence schedule ran, and the frame
+        # before each ended at or below `warm_start`'s loss threshold.
+        assert all(float(r[1]) <= 5000.0 for r in rows[:-1]), rows
+        before = _tree_mtimes(out)
+        assert len(before) == 2 * SEQ_CLI + 1, sorted(before)
+        t0 = time.perf_counter()
+        again = subprocess.run(cmd + ["--resume"], capture_output=True,
+                               text=True, cwd=ROOT, timeout=600)
+        wall_resume = time.perf_counter() - t0
+        assert again.returncode == 0, again.stdout + again.stderr
+        assert again.stdout.count("Skipping (resume)") == SEQ_CLI
+        assert "Processing" not in again.stdout
+        assert _tree_mtimes(out) == before
+        log("cli", mode="sequence", config="fit_seq.yaml", frames=SEQ_CLI,
+            subprocess_s=f"{wall:.3f}", loop_s=f"{done:.3f}",
+            start_s=f"{wall - done:.3f}",
+            frame_s=",".join(r[3] for r in rows),
+            reproj_px=",".join(r[2] for r in rows),
+            final_loss=",".join(r[1] for r in rows),
+            warm_started=SEQ_CLI - 1, resume_s=f"{wall_resume:.3f}",
+            resume="skipped all, files unchanged")
+
+        # ---- two people with the collision refinement --------------------
+        ws = write_workspace(os.path.join(tmp, "ws_people"), kind="people",
+                             dx0=0.2, device=dev)
+        out = os.path.join(tmp, "multi")
+        args = argv("fit_multi_person_sdf.yaml", ws, out)
+        torch.cuda.synchronize()
+        reset_launches(JK, VK, SK)
+        t0 = time.perf_counter()
+        rc, printed = _run_cli(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_launches(JK, VK, SK)
+        launches["cli_multi"] = got
+        assert rc == 0, printed
+        s_ref = [float(v) for v in re.search(
+            r"coll \[([^\]]*)\]", printed).group(1).split(",")]
+        d = os.path.join(out, "results", ws["serial"], ws["frames"][0])
+        people = [load_result_pkl(os.path.join(d, f"{p:03d}.pkl"))
+                  for p in range(2)]
+        x = [p["transl"][0, 0] for p in people]
+        assert x[0] < x[1], x                   # the truth: -0.2, +0.2
+        # The solo fits' sums: the same session without the refinement.
+        cfg = load_config(args[1], data_folder=ws["data_folder"],
+                          cam_param=ws["cam_param"], model_folder=absent,
+                          prior_folder=absent, save_images=False)
+        sess = build_session(cfg, device=dev)
+        frame = sess.dataset[0]
+        obs = cat_observations([frame_to_observations(
+            frame, sess.joint_weights, person=p, device=dev)
+            for p in range(2)])
+        solo, _ = fit_people(sess.fit_config, sess.assets, sess.cameras, obs,
+                             vposer_w=sess.vposer, refine_collision=False,
+                             img_height=float(frame.img_hw[0]), device=dev)
+        verts = smpl_forward(sess.assets, solo.params,
+                             V.decode(sess.vposer, solo.z))[0]
+        s_solo = S.collision_sums_points(verts, sess.assets.faces).cpu()
+        assert sum(s_ref) < float(s_solo.sum()), (s_ref, s_solo)
+        assert got["joint_jacobian"] > 0 and got["vposer_tail"] > 0, got
+        log("cli", mode="multi_person", config="fit_multi_person_sdf.yaml",
+            people=2, engine=cfg.sdf_engine, wall_s=f"{wall:.3f}",
+            transl_x=",".join(f"{v:.4f}" for v in x),
+            sums_solo=_compact(s_solo), sums_refined=",".join(
+                f"{v:.4g}" for v in s_ref),
+            losses=",".join(f"{p['loss']:.3f}" for p in people),
+            launches=json.dumps(got).replace(" ", ""))
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1520,6 +1797,7 @@ def main() -> int:
                  dict(hand_dim=6, num_expr=10, opt_face=True), 40, 8.0)
     family_phase(dev, path, "smplh", B_SMPLH, dict(hand_dim=6), 30, 6.0)
     schur_phase(dev, path)
+    cli_phase(dev, path)
     # Every kernel's launches summed over the fit paths.
     for name in kernels:
         kernels[name]["launches"] = sum(p.get(name, 0) for p in path.values())

@@ -13,7 +13,8 @@ smpllsp, SMPL-H and SMPL-X with their hand, expression and face
 blocks), the one-card shared-shape sequence fit
 (`parallel.schur.schur_sequence_fit`), and the multi-person collision
 fits (`fitting.multi_person.fit_people`); the kernels on their paths are
-hand-written in CUDA C++ under `csrc/`.
+hand-written in CUDA C++ under `csrc/`.  `cli.main` fits a folder in the
+reference's layout from a YAML config, as the JAX package's CLI does.
 """
 
 from .device import resolve_device

@@ -73,3 +73,42 @@ def load_cameras_txt(path: str, device: DeviceLike = None,
     return Camera(rotation=t(E[:, :, :3]), translation=t(E[:, :, 3]),
                   focal=t(np.stack([K[:, 0, 0], K[:, 1, 1]], -1)),
                   center=t(K[:, :2, 2]))
+
+
+def get_rot_trans(campose, photoscan: bool = False):
+    """Split 4x4 camera poses into (translations, rotations) lists
+    (`code/utils/module_utils.py:327-338`, used by `init.py:106`).
+    ``photoscan=True`` inverts each pose first: the reference's adapter
+    for Agisoft-convention extrinsics stored as camera-to-world."""
+    trans, rot = [], []
+    for cam_pose in campose:
+        if photoscan:
+            cam_pose = np.linalg.inv(cam_pose)
+        trans.append(cam_pose[:3, 3])
+        rot.append(cam_pose[:3, :3])
+    return trans, rot
+
+
+def save_cameras_txt(path: str, cam: Camera) -> None:
+    """Write cameras in the text format `load_cameras_txt` reads."""
+    V = cam.num_views
+    focal = cam.focal.detach().cpu().numpy()
+    center = cam.center.detach().cpu().numpy()
+    K = np.zeros((V, 3, 3), focal.dtype)
+    K[:, 0, 0] = focal[:, 0]
+    K[:, 1, 1] = focal[:, 1]
+    K[:, 0, 2] = center[:, 0]
+    K[:, 1, 2] = center[:, 1]
+    K[:, 2, 2] = 1.0
+    R = cam.rotation.detach().cpu().numpy()
+    t = cam.translation.detach().cpu().numpy()
+    with open(path, "w") as f:
+        for v in range(V):
+            f.write(f"{v}\n")
+            for row in K[v]:
+                f.write(" ".join(str(x) for x in row) + " \n")
+            f.write("0 0\n")
+            for i in range(3):
+                f.write(" ".join(str(x) for x in R[v, i]) +
+                        f" {t[v, i]} \n")
+            f.write("\n")

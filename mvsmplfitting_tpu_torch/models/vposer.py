@@ -8,6 +8,7 @@ on the fitting path; the encoder weights are loaded but not used.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -119,3 +120,95 @@ def load_npz(path: str, device: DeviceLike = None,
         kw = {k: torch.as_tensor(np.asarray(d[k]), dtype=dtype, device=dev)
               for k in d.files}
     return VPoserWeights(**kw)
+
+
+def save_npz(path: str, weights: VPoserWeights) -> None:
+    np.savez(path, **{f.name: getattr(weights, f.name).cpu().numpy()
+                      for f in dataclasses.fields(weights)
+                      if getattr(weights, f.name) is not None})
+
+
+def convert_torch_snapshot(snapshot_path: str,
+                           out_npz: Optional[str] = None,
+                           device: DeviceLike = None) -> VPoserWeights:
+    """The weights of a torch VPoser snapshot pkl, read with `torch.load`.
+
+    The snapshot pickles a whole nn.Module by its class path
+    `model.VPoser`, so stub classes are registered for unpickling and the
+    state dict is read; Linear weights (out, in) are transposed to the
+    input-major layout of `VPoserWeights`.
+    """
+    import sys
+    import types
+
+    import torch.nn as nn
+
+    mod = types.ModuleType("model")
+    vp_mod = types.ModuleType("model.VPoser")
+
+    class VPoser(nn.Module):
+        pass
+
+    class ContinousRotReprDecoder(nn.Module):
+        pass
+
+    vp_mod.VPoser = VPoser
+    vp_mod.ContinousRotReprDecoder = ContinousRotReprDecoder
+    mod.VPoser = vp_mod
+    sys.modules.setdefault("model", mod)
+    sys.modules.setdefault("model.VPoser", vp_mod)
+
+    dev = resolve_device(device)
+    sd = torch.load(snapshot_path, map_location="cpu",
+                    weights_only=False).state_dict()
+
+    def t(name):  # torch Linear stores (out, in)
+        return sd[name].detach().t().contiguous().to(dev, torch.float32)
+
+    def v(name):
+        return sd[name].detach().to(dev, torch.float32)
+
+    weights = VPoserWeights(
+        dec_fc1_w=t("bodyprior_dec_fc1.weight"),
+        dec_fc1_b=v("bodyprior_dec_fc1.bias"),
+        dec_fc2_w=t("bodyprior_dec_fc2.weight"),
+        dec_fc2_b=v("bodyprior_dec_fc2.bias"),
+        dec_out_w=t("bodyprior_dec_out.weight"),
+        dec_out_b=v("bodyprior_dec_out.bias"),
+        enc_bn1_mean=v("bodyprior_enc_bn1.running_mean"),
+        enc_bn1_var=v("bodyprior_enc_bn1.running_var"),
+        enc_bn1_w=v("bodyprior_enc_bn1.weight"),
+        enc_bn1_b=v("bodyprior_enc_bn1.bias"),
+        enc_fc1_w=t("bodyprior_enc_fc1.weight"),
+        enc_fc1_b=v("bodyprior_enc_fc1.bias"),
+        enc_bn2_mean=v("bodyprior_enc_bn2.running_mean"),
+        enc_bn2_var=v("bodyprior_enc_bn2.running_var"),
+        enc_bn2_w=v("bodyprior_enc_bn2.weight"),
+        enc_bn2_b=v("bodyprior_enc_bn2.bias"),
+        enc_fc2_w=t("bodyprior_enc_fc2.weight"),
+        enc_fc2_b=v("bodyprior_enc_fc2.bias"),
+        enc_mu_w=t("bodyprior_enc_mu.weight"),
+        enc_mu_b=v("bodyprior_enc_mu.bias"),
+    )
+    if out_npz:
+        save_npz(out_npz, weights)
+    return weights
+
+
+def load_vposer(prior_folder: str, device: DeviceLike = None
+                ) -> VPoserWeights:
+    """Resolve VPoser weights like the reference loader (`utils/prior.py`):
+    a converted `vposer_weights.npz` in the folder first, else the newest
+    `snapshots/*.pkl` torch snapshot."""
+    npz = os.path.join(prior_folder, "vposer_weights.npz")
+    if os.path.exists(npz):
+        return load_npz(npz, device)
+    snap_dir = os.path.join(prior_folder, "snapshots")
+    if os.path.isdir(snap_dir):
+        pkls = sorted(
+            (os.path.join(snap_dir, p) for p in os.listdir(snap_dir)
+             if p.endswith(".pkl")),
+            key=os.path.getmtime)
+        if pkls:
+            return convert_torch_snapshot(pkls[-1], device=device)
+    raise FileNotFoundError(f"No VPoser weights under {prior_folder}")

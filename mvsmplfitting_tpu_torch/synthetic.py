@@ -10,22 +10,27 @@ truths add hand PCA (and, for SMPL-X, expression and jaw) blocks, as
 JAX's own SMPL-H/X fit tests do (`tests/test_smplx_family.py:225-265`).
 `make_sequence` moves each frame's truth on by a seeded drift per time
 step; `make_person_sequence` is one person's frames with one shared shape
-(`tests/test_schur.py:31-63`).
+(`tests/test_schur.py:31-63`).  `write_workspace` writes any of these
+problems to disk in the reference's layout, for the CLI to read.
 """
 
 from __future__ import annotations
 
+import functools
 import os
+import struct
+import zlib
 from typing import List, Tuple
 
 import numpy as np
 import torch
 
+from .data.keypoints import save_keypoints_json
 from .device import DeviceLike, resolve_device
 from .fitting.energy import Observations
 from .models import vposer as vposer_lib
 from .models.assets import synthetic_smpl
-from .models.camera import Camera, project_points
+from .models.camera import Camera, project_points, save_cameras_txt
 from .models.joint_model import with_joint_model
 from .models.smpl import SMPLAssets, SMPLParams, smpl_forward
 
@@ -235,3 +240,72 @@ def make_people_problem(dx0: float = 0.2, num_views: int = 6,
         view_mask=torch.ones((2, num_views), device=dev),
         joint_weights=torch.ones((2, K), device=dev))
     return assets, vposer_w, cam, obs
+
+
+@functools.lru_cache(maxsize=4)
+def black_png(height: int, width: int) -> bytes:
+    """An all-black 8-bit RGB PNG, written with zlib and struct alone."""
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    rows = bytes(height * (1 + 3 * width))     # filter byte 0 per row
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8, 2,
+                                         0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows, 6)) + chunk(b"IEND", b""))
+
+
+def write_workspace(root: str, kind: str = "frames", num_frames: int = 2,
+                    num_views: int = 6, seed: int = 0,
+                    model_type: str = "smpl", dx0: float = 0.2,
+                    serial: str = "0000", image_hw: Tuple[int, int] = (
+                        1080, 1920), device: DeviceLike = None) -> dict:
+    """Write a synthetic problem in the reference's layout under `root`:
+    `camparams.txt` (`save_cameras_txt`), and per frame f and view v
+    `data/images/<serial>/Camera<v:02d>/<f:05d>.png` (black, `image_hw`;
+    the height sets the data weight 500 / H) and
+    `data/keypoints/<serial>/Camera<v:02d>/<f:05d>_keypoints.json` (the
+    exact projections, confidence 1, one OpenPose person each).
+
+    kind: "frames" (`make_problem`'s distinct frames), "sequence" (one
+    `make_sequence` sequence of `num_frames` steps) or "people" (one
+    frame of `make_people_problem(dx0)`'s two bodies, both in every
+    view's file, the -x one first).  Returns the paths, the serial and
+    the frame names.
+    """
+    dev = resolve_device(device)
+    if kind == "frames":
+        _, _, cam, obs = make_problem(num_views, num_frames, seed, dev,
+                                      model_type)
+        gt2d = obs.gt2d[:, None]
+    elif kind == "sequence":
+        _, _, cam, steps = make_sequence(num_views, 1, num_frames, seed, dev,
+                                         model_type)
+        gt2d = torch.cat([o.gt2d for o in steps])[:, None]
+    elif kind == "people":
+        _, _, cam, obs = make_people_problem(dx0, num_views, dev)
+        gt2d = obs.gt2d[None]
+    else:
+        raise ValueError(f"unknown workspace kind {kind!r}")
+    gt2d = gt2d.cpu().numpy()
+    F, P, V, K, _ = gt2d.shape
+    data = os.path.join(root, "data")
+    os.makedirs(root, exist_ok=True)
+    cam_param = os.path.join(root, "camparams.txt")
+    save_cameras_txt(cam_param, cam)
+    png = black_png(*image_hw)
+    ones = np.ones((P, K, 1), np.float32)
+    for f in range(F):
+        for v in range(V):
+            sub = os.path.join(serial, f"Camera{v:02d}")
+            img_dir = os.path.join(data, "images", sub)
+            os.makedirs(img_dir, exist_ok=True)
+            with open(os.path.join(img_dir, f"{f:05d}.png"), "wb") as fh:
+                fh.write(png)
+            save_keypoints_json(
+                os.path.join(data, "keypoints", sub,
+                             f"{f:05d}_keypoints.json"),
+                np.concatenate([gt2d[f, :, v], ones], axis=-1))
+    return dict(root=root, data_folder=data, cam_param=cam_param,
+                serial=serial, frames=[f"{f:05d}" for f in range(F)])

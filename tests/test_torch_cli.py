@@ -1,0 +1,251 @@
+"""The port's session and fitting CLI against the JAX package, on the CPU,
+end to end on a workspace in the reference's layout
+(`synthetic.write_workspace`, read by both CLIs).
+
+Tolerances and why:
+- `build_session`: every `FitConfig` field, the cameras, joint weights,
+  assets and VPoser weights exact (the same host numpy, the same
+  files);
+- the batched CLI against JAX's: the pkls' keys, shapes and dtypes
+  exact; losses at rtol 1e-2, global orientation and translation at
+  atol 1e-3 (rad, m).  Both CLIs run the library defaults (Newton-
+  Schulz, speculative LM), which may take another path on round-off;
+  JAX's own batch-vs-single spread is rtol 1e-2 (`tests/test_parallel.
+  py`).  Measured here: ~3e-6 on the orientation, 3e-7 on the losses;
+- the per-frame sequence CLI against the port's own `init_guess`,
+  `warm_start` and `fit_frame` on the same session: rtol 1e-6 (the same
+  calls; the CLI adds no arithmetic).
+
+JAX's session builds its joint model op by op in float32 (~12 s here);
+both JAX sessions of this module take the port-built one instead (as
+`torch_port_helpers.jax_assets` does), a difference of ~5e-7.  The test
+configs set ftol 1e-4, which cuts the LM loops short in both packages
+alike.
+"""
+
+import dataclasses
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+import yaml
+
+import mvsmplfitting_tpu.models.joint_model as JJM
+from mvsmplfitting_tpu.cli import main as jcli
+from mvsmplfitting_tpu.config import load_config as jload_config
+from mvsmplfitting_tpu.session import build_session as jbuild_session
+from mvsmplfitting_tpu_torch.cli import main as tcli
+from mvsmplfitting_tpu_torch.config import load_config
+from mvsmplfitting_tpu_torch.data.dataset import frame_to_observations
+from mvsmplfitting_tpu_torch.data.results import load_result_pkl
+from mvsmplfitting_tpu_torch.fitting.initialize import init_guess, warm_start
+from mvsmplfitting_tpu_torch.fitting.stages import fit_frame
+from mvsmplfitting_tpu_torch.session import build_session
+
+from torch_port_helpers import (arrays, cli_workspace, jax_joint_model,
+                                port_assets, write_config)
+
+BASE = dict(model_type="smpl", use_vposer=True, optim_type="lm",
+            save_images=False, ftol=1e-4)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _setup():
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JJM, "with_joint_model", lambda a: a.replace(
+            joint_model=jax_joint_model(port_assets(a.model_type)
+                                        .joint_model)))
+        yield
+    torch.set_num_threads(before)
+
+
+@pytest.fixture(scope="module")
+def ws(tmp_path_factory):
+    return cli_workspace(tmp_path_factory.mktemp("ws"), num_frames=2)
+
+
+def _argv(ws, config, out, *extra):
+    absent = os.path.join(ws["root"], "absent")
+    return ["--config", config, "--data_folder", ws["data_folder"],
+            "--cam_param", ws["cam_param"], "--output_folder", out,
+            "--model_folder", absent, "--prior_folder", absent, *extra]
+
+
+def _files(root):
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            p = os.path.join(d, n)
+            out[os.path.relpath(p, root)] = os.stat(p).st_mtime_ns
+    return out
+
+
+# ---------------------------------------------------------------- session
+
+@pytest.mark.parametrize("case", ["lm", "lbfgsls", "adam", "lm_ad", "gmm"])
+def test_session_as_jax(ws, tmp_path, monkeypatch, case):
+    values = dict(BASE, optim_type=case.split("_")[0], maxiters=12, lr=0.05,
+                  data_folder=ws["data_folder"], cam_param=ws["cam_param"],
+                  model_folder=str(tmp_path / "absent"),
+                  prior_folder=str(tmp_path / "absent"))
+    if case == "lm_ad":
+        monkeypatch.setenv("MVSF_LM_JAC", "ad")
+    if case == "gmm":
+        values.update(use_vposer=False, body_prior_type="gmm",
+                      model_type="smpllsp")
+    path = write_config(tmp_path / "c.yaml", **values)
+    ours = build_session(load_config(path), device="cpu")
+    theirs = jbuild_session(jload_config(path))
+    a, b = ours.fit_config, theirs.fit_config
+    for f in dataclasses.fields(a.spec):
+        assert getattr(a.spec, f.name) == getattr(b.spec, f.name), f.name
+    for name in ("lm", "lbfgs", "grad"):
+        assert dataclasses.asdict(getattr(a, name)) == \
+            dataclasses.asdict(getattr(b, name)), name
+    for name in ("solver", "pose_weights", "shape_weights", "coll_weights",
+                 "fused", "is_seq"):
+        assert getattr(a, name) == getattr(b, name), name
+    if case == "lm_ad":
+        assert a.lm.jac == "ad"
+    assert ours.pose_format == theirs.pose_format
+    assert ours.synthetic_model and theirs.synthetic_model
+    np.testing.assert_array_equal(ours.joint_weights, theirs.joint_weights)
+    for f in ("rotation", "translation", "focal", "center"):
+        np.testing.assert_array_equal(getattr(ours.cameras, f).numpy(),
+                                      np.asarray(getattr(theirs.cameras, f)))
+    for name, v in arrays(theirs.assets).items():
+        w = getattr(ours.assets, name)
+        assert (v is None) == (w is None), name
+        if v is not None:
+            np.testing.assert_array_equal(w.numpy(), v, err_msg=name)
+    for name in ("vposer", "gmm"):
+        x, y = getattr(ours, name), getattr(theirs, name)
+        assert (x is None) == (y is None), name
+        if y is not None:
+            for k, v in arrays(y).items():
+                if v is not None and hasattr(x, k):
+                    np.testing.assert_array_equal(getattr(x, k).numpy(), v,
+                                                  err_msg=f"{name}.{k}")
+    assert len(ours.dataset) == len(theirs.dataset) == 2
+
+
+# ---------------------------------------------------------------- the CLI
+
+def test_batched_cli_as_jax(ws, tmp_path, capsys):
+    """Both CLIs in batched mode on the same files: the same outputs."""
+    cfg = write_config(tmp_path / "b.yaml", **BASE, batch_frames=2)
+    assert jcli.main(_argv(ws, cfg, str(tmp_path / "jax"))) == 0
+    jax_out = capsys.readouterr().out
+    assert tcli.main(_argv(ws, cfg, str(tmp_path / "port"),
+                           "--device", "cpu")) == 0
+    out = capsys.readouterr().out
+    # The same printed lines, numbers aside.
+    def shape(text):
+        return [re.sub(r"[0-9.]+", "#", line) for line in text.splitlines()
+                if "[warn]" not in line]
+    assert shape(out) == shape(jax_out)
+    for fr in ws["frames"]:
+        rel = os.path.join("results", ws["serial"], fr, "000.pkl")
+        ours = load_result_pkl(str(tmp_path / "port" / rel))
+        theirs = load_result_pkl(str(tmp_path / "jax" / rel))
+        assert list(ours) == list(theirs)
+        for k, v in theirs.items():
+            if k != "loss":
+                assert ours[k].shape == v.shape and ours[k].dtype == v.dtype
+        np.testing.assert_allclose(ours["loss"], theirs["loss"], rtol=1e-2)
+        for k in ("global_orient", "transl"):
+            np.testing.assert_allclose(ours[k], theirs[k], rtol=0, atol=1e-3)
+        mesh = os.path.join("meshes", ws["serial"], fr, "000.obj")
+        with open(tmp_path / "port" / mesh) as f:
+            lines = f.read().splitlines()
+        assert sum(ln.startswith("v ") for ln in lines) == 6890
+        assert sum(ln.startswith("f ") for ln in lines) == 13776
+    with open(tmp_path / "port" / "conf.yaml") as f:
+        ours = yaml.safe_load(f)
+    with open(tmp_path / "jax" / "conf.yaml") as f:
+        theirs = yaml.safe_load(f)
+    assert ours.pop("output_folder") != theirs.pop("output_folder")
+    assert ours == theirs
+
+
+def test_sequence_cli_matches_library_and_resumes(ws, tmp_path, capsys):
+    cfg_path = write_config(tmp_path / "s.yaml", **BASE, is_seq=True)
+    out = str(tmp_path / "out")
+    argv = _argv(ws, cfg_path, out, "--device", "cpu")
+    assert tcli.main(argv) == 0
+    printed = capsys.readouterr().out
+    stages = re.findall(r"stages \[([^\]]*)\] final ([0-9.]+)", printed)
+    assert [len(s.split()) for s, _ in stages] == [4, 2]
+    assert float(stages[0][1]) <= 5000.0      # frame 1 takes the warm start
+
+    # The same calls through the library.
+    cfg = load_config(cfg_path, data_folder=ws["data_folder"],
+                      cam_param=ws["cam_param"],
+                      model_folder=os.path.join(ws["root"], "absent"),
+                      prior_folder=os.path.join(ws["root"], "absent"))
+    sess = build_session(cfg, device="cpu")
+    prev = None
+    for frame in sess.dataset:
+        obs = frame_to_observations(frame, sess.joint_weights, device="cpu")
+        guess = init_guess(sess.assets, sess.cameras, obs.gt2d, obs.conf,
+                           obs.view_mask)
+        if prev is not None:
+            guess = warm_start(prev.params, prev.z, prev.loss, guess)
+        prev = fit_frame(sess.fit_config, sess.assets, sess.cameras, obs,
+                         guess.params, guess.z, vposer_w=sess.vposer,
+                         img_height=float(frame.img_hw[0]),
+                         seq_start=frame.frame_name == ws["frames"][0])
+        got = load_result_pkl(os.path.join(out, "results", frame.serial,
+                                           frame.frame_name, "000.pkl"))
+        np.testing.assert_allclose(got["loss"], prev.loss.item(), rtol=1e-6)
+        for k, v in (("betas", prev.params.betas),
+                     ("global_orient", prev.params.global_orient),
+                     ("transl", prev.params.transl),
+                     ("pose_embedding", prev.z)):
+            np.testing.assert_allclose(got[k], v.numpy(), rtol=1e-6,
+                                       atol=1e-7, err_msg=k)
+
+    # --resume skips every frame and writes nothing.
+    before = _files(out)
+    assert tcli.main(argv + ["--resume"]) == 0
+    printed = capsys.readouterr().out
+    assert printed.count("Skipping (resume)") == 2
+    assert "Processing" not in printed
+    assert _files(out) == before
+
+
+def test_save_images_refused_before_loading(ws, tmp_path):
+    cfg = write_config(tmp_path / "i.yaml", model_type="smpl")
+    out = tmp_path / "out"
+    with pytest.raises(NotImplementedError,
+                       match="--no_save_images.*|item 10"):
+        tcli.main(_argv(ws, cfg, str(out), "--device", "cpu"))
+    assert not out.exists()
+    if not torch.cuda.is_available():
+        # No GPU and no --device cpu: the default device raises.
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tcli.main(_argv(ws, cfg, str(out), "--no_save_images"))
+        assert not out.exists()
+
+
+def test_two_person_solo_cli(tmp_path, capsys):
+    """Two people in every view's file, fitted without the collision
+    term: one pkl per person, in the files' (the truth's) order."""
+    ws = cli_workspace(tmp_path / "ws", kind="people", dx0=0.2)
+    cfg = write_config(tmp_path / "p.yaml", **BASE, num_people=2,
+                       interpenetration=False)
+    out = tmp_path / "out"
+    assert tcli.main(_argv(ws, cfg, str(out), "--device", "cpu")) == 0
+    printed = capsys.readouterr().out
+    assert "2 people" in printed and "coll [0.0, 0.0]" in printed
+    d = out / "results" / ws["serial"] / ws["frames"][0]
+    people = [load_result_pkl(str(d / f"{p:03d}.pkl")) for p in range(2)]
+    x = [p["transl"][0, 0] for p in people]
+    assert x[0] < x[1], x                      # truth: -0.2, +0.2
+    np.testing.assert_allclose(x, [-0.2, 0.2], atol=0.1)
+    assert (out / "meshes" / ws["serial"] / ws["frames"][0]
+            / "001.obj").exists()

@@ -196,3 +196,39 @@ def phase_b_walk(tb, m, vox):
         left[c] = False
     return int((~left).sum()), run_min, left
 
+
+
+def black_png(height, width):
+    """The bytes of an all-black RGB PNG (`synthetic.black_png`)."""
+    from mvsmplfitting_tpu_torch.synthetic import black_png as png
+    return png(height, width)
+
+
+def jpeg_header(height, width):
+    """A JPEG's header segments (SOI, APP0, DQT, SOF0) and EOI, enough
+    for a reader of the frame size; no image data."""
+    import struct
+    app0 = (b"\xff\xe0" + struct.pack(">H", 16)
+            + b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    dqt = b"\xff\xdb" + struct.pack(">H", 67) + bytes(65)
+    sof = b"\xff\xc0" + struct.pack(">HBHHB", 17, 8, height, width, 3) \
+        + bytes(9)
+    return b"\xff\xd8" + app0 + dqt + sof + b"\xff\xd9"
+
+
+def cli_workspace(root, kind="frames", **kw):
+    """A workspace in the reference's layout under `root`, written by the
+    port's `synthetic.write_workspace` on the CPU: both packages' CLIs
+    read these same files (camera text, PNG headers, keypoint JSONs)."""
+    from mvsmplfitting_tpu_torch.synthetic import write_workspace
+    return write_workspace(str(root), kind=kind, device="cpu", **kw)
+
+
+def write_config(path, **values):
+    """A config file of `key: value` lines (JSON scalars and flow lists,
+    which both packages' YAML readers take)."""
+    import json
+    with open(path, "w") as f:
+        for k, v in values.items():
+            f.write(f"{k}: {json.dumps(v)}\n")
+    return str(path)
