@@ -133,13 +133,38 @@ Phases (each prints one line; any failure exits non-zero):
      `cfg_files/fit_multi_person_sdf.yaml` on one frame of the two-person
      fixture (dx0=0.2): one pkl per person in the truth's x order, the
      refined collision sums below the solo fits';
+ 20. [keypoints] the keypoint CLI (`mvsmplfitting_tpu_torch.cli.
+     keypoints`) at full width: the image reader against OpenCV's
+     recorded decodes of `tests/fixtures/images` (sha256); YOLOX-X
+     (800x1440) and FastPose (256x192, 26 joints) checkpoints in the
+     reference's names from seed 0 (YOLOX's BaseConv convolutions at
+     half gain, box-size biases + log 6, the objectness bias shifted to
+     ~8 candidates a view at `--det_thresh` 0.1; bfloat16 takes the
+     threshold that passes as many); 4 frames x the six 1920x1080
+     fixture views, fp32 and `--bf16`, each run twice and the second
+     reported: per-stage seconds (`StageTimer`; the nets' forwards also
+     by CUDA events), frames/s of the whole CLI (net builds and
+     checkpoint loads included) and of its frame loop, peak memory, candidate and kept boxes
+     and NMS host ms per view, conv FLOPs counted from the modules'
+     shapes and the share of the fp32 (67 TFLOP/s) or bf16 (989) peak;
+     every JSON written and read back by the fitting dataset; no B1-B4
+     launch; `python -m mvsmplfitting_tpu_torch.cli.keypoints` in a
+     subprocess with its default device, its JSONs against the
+     in-process fp32 run's (the same people; the largest difference
+     reported); the detector's 6-view forward with and without cuDNN's
+     autotuner (information); view 0 on the card against the CPU
+     (decoded boxes rtol/atol 1e-3, heatmaps on the same crops atol
+     1e-4, keypoints equal to 1e-3 px wherever the heatmap's top-two
+     margin and neighbour differences exceed 1e-4) and bfloat16 against
+     fp32 (heatmaps within 5% of their magnitude, keypoints within 8 px
+     where the fp32 peak clears twice bfloat16's change);
 then the total seconds, the card line, the kernels JSON line and the
 result line.  Each path's launch counters are set to 0 just before it
 and read just after; the JSON line gives every kernel's launches summed
 over [fit], [collide], [multi], [points] (both runs), [fused], [lbfgs],
-[grad], [gmm], [seq] (all steps), [adjust], [smplx], [smplh], [schur]
-and [cli] (its batched and two-person runs; the sequence subprocess's
-launches are its own).
+[grad], [gmm], [seq] (all steps), [adjust], [smplx], [smplh], [schur],
+[cli] (its batched and two-person runs; the sequence subprocess's
+launches are its own) and [keypoints] (none).
 """
 
 from __future__ import annotations
@@ -1610,6 +1635,321 @@ def cli_phase(dev, launches: dict) -> None:
             launches=json.dumps(got).replace(" ", ""))
 
 
+KP_FRAMES = 4          # [keypoints]: frames of the six fixture views
+KP_TARGET = 8          # [keypoints]: detector candidates per view (mean)
+KP_CHECK_CROPS = 16    # [keypoints]: crops of the card-vs-CPU pose check
+IMAGE_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "images")
+
+
+def _obj_bias_shift(decoded: torch.Tensor, thresh: float, target: int
+                    ) -> float:
+    """The shift of YOLOX's objectness logits after which `target`
+    anchors of `decoded` (N, A, 6) score >= `thresh`: the least one, by
+    bisection (each anchor's score grows with the shift)."""
+    obj = decoded[..., 4].double().clamp(1e-30, 1 - 1e-7)
+    logit = torch.log(obj) - torch.log1p(-obj)
+    cls = decoded[..., 5].double()
+
+    def count(d):
+        return int(((torch.sigmoid(logit + d) * cls) >= thresh).sum())
+
+    lo, hi = -60.0, 60.0
+    for _ in range(60):
+        mid = 0.5 * (lo + hi)
+        lo, hi = (lo, mid) if count(mid) >= target else (mid, hi)
+    return hi
+
+
+def keypoints_phase(dev, launches: dict) -> None:
+    """[keypoints]: the keypoint CLI (`mvsmplfitting_tpu_torch.cli.
+    keypoints`) at full width on the committed 1920x1080 views."""
+    import contextlib
+    import hashlib
+    import io
+    import shutil
+    import tempfile
+
+    from mvsmplfitting_tpu_torch.cli import keypoints as kcli
+    from mvsmplfitting_tpu_torch.data.dataset import FittingDataset
+    from mvsmplfitting_tpu_torch.data.images import ImageError, read_image
+    from mvsmplfitting_tpu_torch.detect import predictor as TP
+    from mvsmplfitting_tpu_torch.detect.fastpose import FastPose
+    from mvsmplfitting_tpu_torch.detect.preprocess import (
+        bbox_to_center_scale, crop_affine, decode_margins, heatmap_to_coords)
+    from mvsmplfitting_tpu_torch.detect.weights import random_state_dict
+    from mvsmplfitting_tpu_torch.detect.yolox import YOLOX
+    from mvsmplfitting_tpu_torch.ops import joint_kernel as JK
+    from mvsmplfitting_tpu_torch.ops import sdf_kernel as SK
+    from mvsmplfitting_tpu_torch.ops import vposer_kernel as VK
+    from mvsmplfitting_tpu_torch.utils.profiling import StageTimer, conv_flops
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
+    # ---- the image reader against OpenCV's recorded decodes -----------
+    with open(os.path.join(IMAGE_FIXTURES, "decoded.json")) as f:
+        recorded = json.load(f)
+    for name, rec in sorted(recorded.items()):
+        path = os.path.join(IMAGE_FIXTURES, name)
+        if rec is None:
+            try:
+                read_image(path)
+            except ImageError:
+                continue
+            raise AssertionError(f"{name}: decoded, should be refused")
+        img = read_image(path)
+        assert list(img.shape) == rec["shape"], name
+        assert hashlib.sha256(img.tobytes()).hexdigest() == rec["sha256"], \
+            f"{name}: not OpenCV's bytes"
+    views = [os.path.join(IMAGE_FIXTURES, "views", f"Camera0{v}.jpg")
+             for v in range(6)]
+    t0 = time.perf_counter()
+    imgs = [read_image(p) for p in views]
+    read_s = (time.perf_counter() - t0) / 6
+    log("keypoints", reader_files=len(recorded),
+        refused=sum(r is None for r in recorded.values()),
+        matches="opencv_sha256", decode_ms_1080p=f"{1e3 * read_s:.2f}")
+
+    # ---- weights from seed 0 in the reference's names ---------------
+    # Random YOLOX-X weights at `random_state_dict`'s gain are chaotic on
+    # raw 0-255 pixels: activations reach ~1e4, box logits ~600, and fp32
+    # rounding moves box logits by ~1e-3 (~1e-2 with BatchNorm statistics
+    # set from data); at half that gain on the BaseConv convolutions the
+    # net is contractive (fp32 moves its outputs by ~3e-7 against
+    # float64, on a CPU at 256x448).  The box-size biases
+    # get log(6) (boxes ~6 strides wide), and the objectness bias is
+    # shifted so that ~KP_TARGET anchors a view pass `--det_thresh` 0.1
+    # (`_obj_bias_shift`).  FastPose's random weights keep heatmaps O(1)
+    # on normalized crops and are used as they are.
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(0)
+    det_sd = random_state_dict(YOLOX(), gen)
+    pose_sd = random_state_dict(FastPose(26), gen)
+    for k in det_sd:
+        if k.endswith(".conv.weight"):
+            det_sd[k] *= 0.5
+    for i in range(3):
+        det_sd[f"head.reg_preds.{i}.bias"][2:] += float(np.log(6.0))
+    dev_imgs = [torch.from_numpy(i).to(dev) for i in imgs]
+    det = TP.PersonDetector(det_sd, device=dev)
+    batch, _ = det.letterbox_batch(dev_imgs)
+    shift = _obj_bias_shift(det.forward(batch), det.conf_thresh,
+                            KP_TARGET * len(views))
+    for i in range(3):
+        det_sd[f"head.obj_preds.{i}.bias"] += shift
+    # bfloat16 moves these near-uniform scores by more than their spread
+    # and rounds them to a few hundred values (~700 candidates a view at
+    # 0.1): its run takes the least threshold that passes at most
+    # KP_TARGET a view on the same views.
+    det16 = TP.PersonDetector(det_sd, bf16=True, device=dev)
+    dec16 = det16.forward(batch)
+    score16 = (dec16[..., 4] * dec16[..., 5]).flatten()
+    thresh16 = float(score16.topk(KP_TARGET * len(views)).values[-1])
+    if int((score16 >= thresh16).sum()) > KP_TARGET * len(views):
+        thresh16 = float(score16[score16 > thresh16].min())
+    log("keypoints", weights="seed 0", yolox_conv_gain=0.5,
+        obj_bias_shift=f"{shift:.4f}", det_thresh_fp32=0.1,
+        det_thresh_bf16=f"{thresh16:.6f}",
+        seconds=f"{time.perf_counter() - t0:.2f}")
+
+    with tempfile.TemporaryDirectory(prefix="mvsf_kp_") as tmp:
+        yolox_ckpt = os.path.join(tmp, "bytetrack_x_mot17.pth.tar")
+        pose_ckpt = os.path.join(tmp, "fast_res50_256x192.pth")
+        torch.save({"model": det_sd}, yolox_ckpt)
+        torch.save(pose_sd, pose_ckpt)
+        ws = os.path.join(tmp, "data")
+        for v, src in enumerate(views):
+            d = os.path.join(ws, "images", "0000", f"Camera0{v}")
+            os.makedirs(d)
+            for f in range(KP_FRAMES):
+                shutil.copy(src, os.path.join(d, f"{f:06d}.jpg"))
+        args = ["--data_folder", ws, "--yolox_ckpt", yolox_ckpt,
+                "--pose_ckpt", pose_ckpt, "--device", dev.type]
+
+        # Each mode runs twice; the second (warm) run is reported, the
+        # first run's wall beside it.
+        runs = {}
+        for tag, extra in (("fp32", []), ("bf16", [
+                "--bf16", "--keyp_folder", "keypoints_bf16",
+                "--det_thresh", repr(thresh16)])):
+            for rep in range(2):
+                timer, stats = StageTimer(), []
+                buf = io.StringIO()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches(JK, VK, SK)
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    rc = kcli.main(args + extra, timer=timer, stats=stats)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                got = read_launches(JK, VK, SK)
+                launches[f"keypoints_{tag}_{rep}"] = got
+                assert rc == 0, buf.getvalue()
+                assert not any(got.values()), f"[keypoints] launched {got}"
+                runs[tag] = dict(timer=timer, stats=stats, wall=wall,
+                                 peak=torch.cuda.max_memory_allocated(),
+                                 first_wall=runs.get(tag, {}).get("wall",
+                                                                  wall))
+
+        # ---- the module entry point with its default device ---------
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "mvsmplfitting_tpu_torch.cli.keypoints",
+             "--data_folder", ws, "--yolox_ckpt", yolox_ckpt, "--pose_ckpt",
+             pose_ckpt, "--keyp_folder", "keypoints_module"],
+            capture_output=True, text=True, cwd=ROOT, timeout=600)
+        module_s = time.perf_counter() - t0
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        from mvsmplfitting_tpu_torch.data.keypoints import read_keypoints_json
+        diff = 0.0
+        for f in range(KP_FRAMES):
+            for v in range(6):
+                rel = os.path.join("0000", f"Camera0{v}",
+                                   f"{f:06d}_keypoints.json")
+                a = read_keypoints_json(os.path.join(ws, "keypoints", rel),
+                                        26)
+                b = read_keypoints_json(os.path.join(
+                    ws, "keypoints_module", rel), 26)
+                assert len(a) == len(b), rel
+                for pa, pb in zip(a, b):
+                    diff = max(diff, float(np.abs(pa - pb).max()))
+        log("keypoints", check="module_entry_default_device",
+            subprocess_s=f"{module_s:.2f}", max_diff_vs_in_process=diff)
+
+        # ---- every JSON is there and the fitting dataset reads it -----
+        for folder in ("keypoints", "keypoints_bf16", "keypoints_module"):
+            ds = FittingDataset(ws, keyp_folder=folder)
+            assert len(ds) == KP_FRAMES and ds.num_views() == 6
+            for f in range(KP_FRAMES):
+                for v in range(6):
+                    assert os.path.exists(os.path.join(
+                        ws, folder, "0000", f"Camera0{v}",
+                        f"{f:06d}_keypoints.json"))
+                fr = ds[f]
+                assert fr.keypoints.shape == (6, 1, 17, 3)
+                assert np.isfinite(fr.keypoints).all()
+                assert fr.img_hw == (1080, 1920)
+
+    # ---- per-stage times, frames/s, memory, share of peak ------------
+    det_flops = conv_flops(YOLOX().to("meta"),
+                           torch.zeros(1, 3, 800, 1440, device="meta"))
+    pose_flops = conv_flops(FastPose(26).to("meta"),
+                            torch.zeros(1, 3, 256, 192, device="meta"))
+    stages = ("decode", "letterbox", "detector", "nms", "crop", "pose",
+              "heatmap", "json")
+    for tag, run in runs.items():
+        st = run["stats"]
+        people = sum(s["people"] for s in st)
+        timings = run["timer"].timings
+        dev_s = run["timer"].device_totals()
+        flops = det_flops * len(st) + pose_flops * people
+        busy = dev_s["detector"] + dev_s.get("pose", 0.0)
+        peak = 989e12 if tag == "bf16" else PEAK_FP32_FLOPS
+        per_frame = {k: sum(v) / KP_FRAMES for k, v in timings.items()}
+        loop_s = sum(per_frame.values()) * KP_FRAMES
+        log("keypoints", run=tag, frames=KP_FRAMES, views=6,
+            fps=f"{KP_FRAMES / run['wall']:.3f}",
+            wall_s=f"{run['wall']:.3f}",
+            first_run_wall_s=f"{run['first_wall']:.3f}",
+            loop_fps=f"{KP_FRAMES / loop_s:.3f}",
+            setup_s=f"{run['wall'] - loop_s:.3f}",
+            peak_mem_gb=f"{run['peak'] / 1e9:.3f}",
+            candidates=",".join(str(s["candidates"]) for s in st[:6]),
+            kept=",".join(str(s["kept"]) for s in st[:6]),
+            crops=people,
+            nms_host_ms_max=f"{1e3 * max(s['nms_s'] for s in st):.3f}",
+            det_gflop_per_view=f"{det_flops / 1e9:.2f}",
+            pose_gflop_per_crop=f"{pose_flops / 1e9:.3f}",
+            detector_dev_s=f"{dev_s['detector']:.4f}",
+            pose_dev_s=f"{dev_s.get('pose', 0.0):.4f}",
+            detector_tflops=f"{det_flops * len(st) / dev_s['detector'] / 1e12:.2f}",
+            nets_tflops=f"{flops / busy / 1e12:.2f}",
+            nets_share_of_peak=f"{flops / busy / peak:.4f}",
+            peak_tflops=f"{peak / 1e12:.0f}")
+        log("keypoints", run=tag, per_frame_s=",".join(
+            f"{k}:{per_frame.get(k, 0.0):.4f}" for k in stages),
+            per_frame_dev_s=",".join(f"{k}:{v / KP_FRAMES:.4f}"
+                                     for k, v in dev_s.items()))
+
+    # ---- information: the detector's forward with cuDNN's autotuner --
+    det = TP.PersonDetector(det_sd, device=dev)
+    timing = {}
+    for bench in (False, True):
+        torch.backends.cudnn.benchmark = bench
+        det.forward(batch)
+        timing[bench] = event_ms(lambda: det.forward(batch))
+    torch.backends.cudnn.benchmark = False
+    log("keypoints", check="detector_forward_6_views",
+        cudnn_default_ms=f"{timing[False]:.2f}",
+        cudnn_benchmark_ms=f"{timing[True]:.2f}",
+        tflops_default=f"{6 * det_flops / timing[False] / 1e9:.2f}",
+        tflops_benchmark=f"{6 * det_flops / timing[True] / 1e9:.2f}")
+
+    # ---- the card against the CPU, one view at full width ------------
+    det_cuda = TP.PersonDetector(det_sd, device=dev)
+    det_cpu = TP.PersonDetector(det_sd, device="cpu")
+    b_cuda, r_cuda = det_cuda.letterbox_batch(dev_imgs[:1])
+    b_cpu, r_cpu = det_cpu.letterbox_batch([torch.from_numpy(imgs[0])])
+    assert r_cuda == r_cpu and torch.equal(b_cuda.cpu(), b_cpu)
+    dec_cuda = det_cuda.forward(b_cuda).cpu()
+    t0 = time.perf_counter()
+    dec_cpu = det_cpu.forward(b_cpu)
+    cpu_det_s = time.perf_counter() - t0
+    torch.testing.assert_close(dec_cuda, dec_cpu, rtol=1e-3, atol=1e-3)
+    det_abs = (dec_cuda - dec_cpu).abs().max().item()
+    det_used = ((dec_cuda - dec_cpu).abs()
+                / (1e-3 + 1e-3 * dec_cpu.abs())).max().item()
+    boxes = det_cuda.select(dec_cuda.to(dev), r_cuda)[0][:KP_CHECK_CROPS]
+    assert len(boxes) > 0, "no box on view 0"
+    pose = {d: TP.PoseEstimator(pose_sd, device=d) for d in (dev, "cpu")}
+    pose16 = TP.PoseEstimator(pose_sd, bf16=True, device=dev)
+    c, s = bbox_to_center_scale(boxes[:, :4], 192 / 256)
+    c_dev = torch.as_tensor(c, device=dev)
+    s_dev = torch.as_tensor(s, device=dev)
+    crops = crop_affine(TP.rgb01(dev_imgs[0]), c_dev, s_dev, (256, 192))
+    hm_cuda = pose[dev].heatmaps(crops)
+    hm_cpu = pose["cpu"].heatmaps(crops.cpu())
+    hm_err = (hm_cuda.cpu() - hm_cpu).abs().max().item()
+    assert hm_err <= 1e-4, f"heatmaps card vs CPU: {hm_err:.3e}"
+    xy_cuda, _ = heatmap_to_coords(hm_cuda, c_dev, s_dev)
+    xy_cpu, _ = heatmap_to_coords(hm_cpu, torch.as_tensor(c),
+                                  torch.as_tensor(s))
+    firm = (decode_margins(hm_cuda) > 1e-4).cpu()
+    xy_diff = (xy_cuda.cpu() - xy_cpu).abs().amax(-1)
+    assert (xy_diff[firm] <= 1e-3).all(), xy_diff[firm].max()
+    # bfloat16 against fp32 on the same crops: JAX's 8 px bound
+    # (`tests/test_detect.py:103-117`) on every joint whose fp32 peak
+    # clears twice bfloat16's largest change to that heatmap (its argmax
+    # cannot move; random weights give flat heatmaps whose near-ties
+    # bfloat16 may reorder), bfloat16's heatmap change under 5% of each
+    # heatmap's largest magnitude; the share of all joints within 8 px
+    # is reported.
+    hm16 = pose16.heatmaps(crops)
+    xy16, _ = heatmap_to_coords(hm16, c_dev, s_dev)
+    flat = hm_cuda.flatten(2)
+    top2 = flat.topk(2, dim=-1).values
+    change = (hm16 - hm_cuda).flatten(2).abs().amax(-1)
+    rel16 = (change / flat.abs().amax(-1)).max().item()
+    assert rel16 < 0.05, rel16
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * change
+    err16 = (xy16 - xy_cuda).abs().amax(-1)
+    assert clear.any(), "no joint clears bfloat16's change"
+    assert (err16[clear] < 8.0).all(), err16[clear].max()
+    within = (err16 < 8.0).float().mean().item()
+    log("keypoints", check="card_vs_cpu", view=0,
+        detector_max_abs_err=f"{det_abs:.3e}",
+        detector_tolerance_used=f"{det_used:.3e}",
+        detector_cpu_s=f"{cpu_det_s:.2f}", crops=len(boxes),
+        heatmap_max_abs_err=f"{hm_err:.3e}",
+        firm_joints=f"{int(firm.sum())}/{firm.numel()}",
+        firm_xy_max_diff=f"{xy_diff[firm].max().item():.3e}",
+        bf16_clear_joints=f"{int(clear.sum())}/{clear.numel()}",
+        bf16_clear_max_px=f"{err16[clear].max().item():.3f}",
+        bf16_heatmap_rel_change=f"{rel16:.3e}",
+        bf16_within_8px_all=f"{within:.4f}", launches_b1_b4=0)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1798,6 +2138,7 @@ def main() -> int:
     family_phase(dev, path, "smplh", B_SMPLH, dict(hand_dim=6), 30, 6.0)
     schur_phase(dev, path)
     cli_phase(dev, path)
+    keypoints_phase(dev, path)
     # Every kernel's launches summed over the fit paths.
     for name in kernels:
         kernels[name]["launches"] = sum(p.get(name, 0) for p in path.values())

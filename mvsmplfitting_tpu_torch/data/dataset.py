@@ -10,7 +10,7 @@ be stacked into a frame batch (`cat_observations`).
 
 Images are lazy: the fit only needs the image *height* (for the
 reference's `data_weight = 500 / H`), read from the file's header;
-pixels are read on demand (`load_image`, which needs Pillow).
+pixels are read on demand (`load_image`).
 """
 
 from __future__ import annotations
@@ -56,9 +56,10 @@ def _jpeg_size(path: str) -> Optional[Tuple[int, int]]:
 
 def load_image(path: str) -> np.ndarray:
     """RGB float image in [0, 1] (the reference's convention,
-    `data_parser.py:371`).  Needs Pillow; no fitting path reads pixels."""
-    from PIL import Image
-    return np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0
+    `data_parser.py:371`), read by `data/images.py`; no fitting path
+    reads pixels."""
+    from .images import read_image
+    return read_image(path)[:, :, ::-1].astype(np.float32) / 255.0
 
 
 @dataclass

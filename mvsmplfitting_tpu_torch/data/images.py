@@ -1,0 +1,271 @@
+"""Image reading without OpenCV: `read_image(path)` as `cv2.imread(path)`.
+
+The JAX pipeline reads its camera images with `cv2.imread`
+(`detect/predictor.py:305-307`); the port runs where neither OpenCV nor
+Pillow is installed, so it decodes the two formats the reference's
+cameras and tools write itself, to the bytes `cv2.imread` (with its
+default `IMREAD_COLOR`) returns: an (H, W, 3) uint8 BGR array.
+
+* JPEG: baseline (sequential Huffman, 8-bit) files, gray or three
+  components, any integral chroma subsampling, restart intervals,
+  decoded by `csrc/image_decode.cpp`, which repeats libjpeg's default
+  decompression in the same integer arithmetic (islow IDCT, fancy
+  upsampling, fixed-point YCbCr -> BGR).  The EXIF orientation tag is
+  applied, as `imread` does.  Progressive, lossless, arithmetic-coded
+  and 12-bit files raise `ImageError` naming the file.
+* PNG: non-interlaced gray, gray+alpha, RGB, RGBA and palette images at
+  every bit depth; zlib through Python's `zlib`, the row filters in
+  `csrc/image_decode.cpp`; alpha is dropped, 16-bit samples keep their
+  high byte and 1/2/4-bit gray scales to 0-255, as `IMREAD_COLOR` does.
+  Interlaced files and PNGs with an EXIF orientation other than 1 raise.
+
+The host library is built with g++ at first use into `build/host/` at
+the repository root (listed in `.gitignore`), named by a hash of its
+source and flags; a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import struct
+import subprocess
+import threading
+import zlib
+from pathlib import Path
+
+import numpy as np
+
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "image_decode.cpp"
+BUILD_DIR = SOURCE.parent.parent.parent / "build" / "host"
+GXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
+
+_lock = threading.Lock()
+_lib = None
+
+
+class ImageError(ValueError):
+    """An image that `read_image` cannot or will not decode."""
+
+
+def library_path() -> Path:
+    h = hashlib.sha1(SOURCE.read_bytes())
+    h.update(" ".join(GXX_FLAGS).encode())
+    return BUILD_DIR / f"libimage_decode_{h.hexdigest()[:12]}.so"
+
+
+def _compiler() -> str:
+    for name in (os.environ.get("CXX"), "g++", "c++"):
+        if name and shutil.which(name):
+            return shutil.which(name)
+    raise RuntimeError("no C++ compiler found (tried $CXX, g++, c++): the "
+                       "image decoder is built from csrc/image_decode.cpp")
+
+
+def load_library() -> ctypes.CDLL:
+    """The decoder library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        out = library_path()
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            proc = subprocess.run(
+                [_compiler(), *GXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+                capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError("building csrc/image_decode.cpp failed:\n"
+                                   + proc.stdout + proc.stderr)
+            os.replace(tmp, out)
+        lib = ctypes.CDLL(str(out))
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.jpeg_info.argtypes = [u8p, ctypes.c_size_t, ip, ip, ip,
+                                  ctypes.c_char_p, ctypes.c_int]
+        lib.jpeg_decode_bgr.argtypes = [u8p, ctypes.c_size_t, u8p,
+                                        ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_char_p, ctypes.c_int]
+        lib.png_unfilter.argtypes = [u8p, u8p, ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_char_p,
+                                     ctypes.c_int]
+        for f in (lib.jpeg_info, lib.jpeg_decode_bgr, lib.png_unfilter):
+            f.restype = ctypes.c_int
+        _lib = lib
+        return lib
+
+
+def _ptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def _err_buf():
+    return ctypes.create_string_buffer(512)
+
+
+# ---- EXIF orientation ------------------------------------------------------
+
+def exif_orientation(tiff: bytes) -> int:
+    """The Orientation tag (0x0112) of an EXIF TIFF block, 1 if absent."""
+    if len(tiff) < 8 or tiff[:2] not in (b"II", b"MM"):
+        return 1
+    e = "<" if tiff[:2] == b"II" else ">"
+    (ifd,) = struct.unpack(e + "I", tiff[4:8])
+    if ifd + 2 > len(tiff):
+        return 1
+    (count,) = struct.unpack(e + "H", tiff[ifd:ifd + 2])
+    for i in range(count):
+        entry = tiff[ifd + 2 + 12 * i: ifd + 14 + 12 * i]
+        if len(entry) < 12:
+            break
+        tag, typ, _ = struct.unpack(e + "HHI", entry[:8])
+        if tag == 0x0112 and typ == 3:
+            (val,) = struct.unpack(e + "H", entry[8:10])
+            return int(val)
+    return 1
+
+
+def _jpeg_exif(data: bytes) -> bytes:
+    """The TIFF block of a JPEG's first APP1 "Exif" segment, or b""."""
+    p = 2
+    while p + 4 <= len(data):
+        if data[p] != 0xFF:
+            return b""
+        marker = data[p + 1]
+        if marker == 0xFF:
+            p += 1
+            continue
+        if marker in (0xDA, 0xD9):
+            return b""
+        (length,) = struct.unpack(">H", data[p + 2:p + 4])
+        body = data[p + 4:p + 2 + length]
+        if marker == 0xE1 and body[:6] == b"Exif\0\0":
+            return body[6:]
+        p += 2 + length
+    return b""
+
+
+def apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
+    """The EXIF orientation transform, as OpenCV's `imread` applies it."""
+    if orientation == 2:
+        img = img[:, ::-1]
+    elif orientation == 3:
+        img = img[::-1, ::-1]
+    elif orientation == 4:
+        img = img[::-1]
+    elif orientation == 5:
+        img = img.transpose(1, 0, 2)
+    elif orientation == 6:
+        img = img.transpose(1, 0, 2)[:, ::-1]
+    elif orientation == 7:
+        img = img.transpose(1, 0, 2)[::-1, ::-1]
+    elif orientation == 8:
+        img = img.transpose(1, 0, 2)[::-1]
+    return np.ascontiguousarray(img)
+
+
+# ---- JPEG ------------------------------------------------------------------
+
+def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    lib = load_library()
+    buf = np.frombuffer(data, np.uint8)
+    w, h, nc = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = _err_buf()
+    if lib.jpeg_info(_ptr(buf), buf.size, ctypes.byref(w), ctypes.byref(h),
+                     ctypes.byref(nc), err, len(err)):
+        raise ImageError(f"{name}: {err.value.decode()}")
+    out = np.empty((h.value, w.value, 3), np.uint8)
+    if lib.jpeg_decode_bgr(_ptr(buf), buf.size, _ptr(out), w.value, h.value,
+                           err, len(err)):
+        raise ImageError(f"{name}: {err.value.decode()}")
+    return apply_orientation(out, exif_orientation(_jpeg_exif(data)))
+
+
+# ---- PNG -------------------------------------------------------------------
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    if not data.startswith(PNG_SIGNATURE):
+        raise ImageError(f"{name}: not a PNG file")
+    p = len(PNG_SIGNATURE)
+    header, palette, idat, exif = None, None, [], b""
+    while p + 8 <= len(data):
+        length, ctype = struct.unpack(">I4s", data[p:p + 8])
+        body = data[p + 8:p + 8 + length]
+        if len(body) < length:
+            raise ImageError(f"{name}: truncated {ctype!r} chunk")
+        if ctype == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body[:13])
+        elif ctype == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif ctype == b"IDAT":
+            idat.append(body)
+        elif ctype == b"eXIf":
+            exif = body
+        elif ctype == b"IEND":
+            break
+        p += 12 + length
+    if header is None:
+        raise ImageError(f"{name}: no IHDR chunk")
+    width, height, depth, color, _, _, interlace = header
+    if interlace:
+        raise ImageError(f"{name}: interlaced PNG is not supported")
+    if color not in _CHANNELS or depth not in (1, 2, 4, 8, 16):
+        raise ImageError(f"{name}: bad PNG color type {color} / depth "
+                         f"{depth}")
+    if exif and exif_orientation(exif) != 1:
+        raise ImageError(f"{name}: PNG with an EXIF orientation other than "
+                         "1 is not supported")
+    ch = _CHANNELS[color]
+    bits = ch * depth
+    rowbytes = (width * bits + 7) // 8
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size < height * (rowbytes + 1):
+        raise ImageError(f"{name}: image data too short")
+    raw = np.ascontiguousarray(raw[:height * (rowbytes + 1)])
+    rows = np.empty((height, rowbytes), np.uint8)
+    err = _err_buf()
+    if load_library().png_unfilter(_ptr(raw), _ptr(rows), height, rowbytes,
+                                   max(1, bits // 8), err, len(err)):
+        raise ImageError(f"{name}: {err.value.decode()}")
+    if depth == 16:
+        samples = rows.reshape(height, width * ch, 2)[..., 0]  # high byte
+    elif depth == 8:
+        samples = rows
+    else:
+        samples = np.unpackbits(rows, axis=1)
+        samples = samples.reshape(height, rowbytes * 8 // depth, depth)
+        weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+        samples = (samples * weights).sum(-1).astype(np.uint8)[:, :width]
+        if color == 0:
+            samples = samples * np.uint8(255 // ((1 << depth) - 1))
+    samples = samples.reshape(height, width, ch)
+    if color == 3:
+        if palette is None:
+            raise ImageError(f"{name}: palette image without PLTE")
+        rgb = palette[np.minimum(samples[..., 0], len(palette) - 1)]
+    elif color in (0, 4):
+        rgb = np.repeat(samples[..., :1], 3, axis=2)
+    else:
+        rgb = samples[..., :3]
+    return np.ascontiguousarray(rgb[..., ::-1])
+
+
+def read_image(path: str) -> np.ndarray:
+    """The image at `path` as (H, W, 3) uint8 BGR, as `cv2.imread(path)`
+    returns it; raises `ImageError` naming the file where the format is
+    not supported."""
+    path = os.fspath(path)
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:2] == b"\xff\xd8":
+        return decode_jpeg(data, path)
+    if data.startswith(PNG_SIGNATURE):
+        return decode_png(data, path)
+    raise ImageError(f"{path}: neither a JPEG nor a PNG file")

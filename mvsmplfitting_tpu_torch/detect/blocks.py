@@ -1,0 +1,256 @@
+"""Conv blocks of the detection nets, NCHW `nn.Module`s (port of
+`detect/blocks.py`).
+
+The sub-modules carry the names of the reference's torch modules
+(`yolox/models/network_blocks.py`, AlphaPose's `SE_Resnet.py`,
+`SE_module.py`, `DUC.py`, `ShuffleResnet.py`), so that a reference
+`state_dict` loads with `load_state_dict`; JAX's `detect/convert.py` is
+the map from those names to its flax trees.  Every BatchNorm runs in
+inference mode with eps 1e-5, as JAX's (`blocks.py:26-30`).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+BN_EPS = 1e-5
+
+
+def activation(name: str) -> nn.Module:
+    if name == "silu":
+        return nn.SiLU()
+    if name == "relu":
+        return nn.ReLU()
+    if name == "lrelu":
+        return nn.LeakyReLU(0.1)
+    raise ValueError(f"unknown activation {name!r}")
+
+
+class BaseConv(nn.Module):
+    """Conv -> BN -> activation (`network_blocks.py` `BaseConv`; JAX's
+    `ConvBnAct`)."""
+
+    def __init__(self, cin: int, cout: int, ksize: int, stride: int = 1,
+                 groups: int = 1, bias: bool = False, act: str = "silu"):
+        super().__init__()
+        self.conv = nn.Conv2d(cin, cout, ksize, stride, (ksize - 1) // 2,
+                              groups=groups, bias=bias)
+        self.bn = nn.BatchNorm2d(cout, eps=BN_EPS)
+        self.act = activation(act)
+
+    def forward(self, x):
+        return self.act(self.bn(self.conv(x)))
+
+
+class DWConv(nn.Module):
+    """Depthwise + pointwise conv pair (`network_blocks.py:44-60`)."""
+
+    def __init__(self, cin: int, cout: int, ksize: int, stride: int = 1,
+                 act: str = "silu"):
+        super().__init__()
+        self.dconv = BaseConv(cin, cin, ksize, stride, groups=cin, act=act)
+        self.pconv = BaseConv(cin, cout, 1, 1, act=act)
+
+    def forward(self, x):
+        return self.pconv(self.dconv(x))
+
+
+def conv_block(depthwise: bool):
+    return DWConv if depthwise else BaseConv
+
+
+class Bottleneck(nn.Module):
+    """YOLOX CSP bottleneck (`network_blocks.py:63-88`)."""
+
+    def __init__(self, cin: int, cout: int, shortcut: bool = True,
+                 expansion: float = 0.5, depthwise: bool = False):
+        super().__init__()
+        hidden = int(cout * expansion)
+        self.conv1 = BaseConv(cin, hidden, 1, 1)
+        self.conv2 = conv_block(depthwise)(hidden, cout, 3, 1)
+        self.use_add = shortcut and cin == cout
+
+    def forward(self, x):
+        y = self.conv2(self.conv1(x))
+        return y + x if self.use_add else y
+
+
+class CSPLayer(nn.Module):
+    """Cross-stage-partial layer (`network_blocks.py:121-167`)."""
+
+    def __init__(self, cin: int, cout: int, n: int = 1,
+                 shortcut: bool = True, expansion: float = 0.5,
+                 depthwise: bool = False):
+        super().__init__()
+        hidden = int(cout * expansion)
+        self.conv1 = BaseConv(cin, hidden, 1, 1)
+        self.conv2 = BaseConv(cin, hidden, 1, 1)
+        self.conv3 = BaseConv(2 * hidden, cout, 1, 1)
+        self.m = nn.Sequential(*[
+            Bottleneck(hidden, hidden, shortcut, 1.0, depthwise)
+            for _ in range(n)])
+
+    def forward(self, x):
+        a = self.m(self.conv1(x))
+        b = self.conv2(x)
+        return self.conv3(torch.cat([a, b], dim=1))
+
+
+class Focus(nn.Module):
+    """Space-to-depth stem (`network_blocks.py:170-192`): the
+    top-left, bottom-left, top-right, bottom-right order."""
+
+    def __init__(self, cin: int, cout: int, ksize: int = 3,
+                 act: str = "silu"):
+        super().__init__()
+        self.conv = BaseConv(cin * 4, cout, ksize, 1, act=act)
+
+    def forward(self, x):
+        tl = x[..., ::2, ::2]
+        tr = x[..., ::2, 1::2]
+        bl = x[..., 1::2, ::2]
+        br = x[..., 1::2, 1::2]
+        return self.conv(torch.cat([tl, bl, tr, br], dim=1))
+
+
+class SPPBottleneck(nn.Module):
+    """Spatial pyramid pooling (`network_blocks.py:91-118`)."""
+
+    def __init__(self, cin: int, cout: int,
+                 kernel_sizes: Sequence[int] = (5, 9, 13),
+                 act: str = "silu"):
+        super().__init__()
+        hidden = cin // 2
+        self.conv1 = BaseConv(cin, hidden, 1, 1, act=act)
+        self.m = nn.ModuleList([nn.MaxPool2d(k, 1, k // 2)
+                                for k in kernel_sizes])
+        self.conv2 = BaseConv(hidden * (len(kernel_sizes) + 1), cout, 1, 1,
+                              act=act)
+
+    def forward(self, x):
+        x = self.conv1(x)
+        return self.conv2(torch.cat([x] + [m(x) for m in self.m], dim=1))
+
+
+# ---------------------------------------------------------------------------
+# ResNet blocks (the pose nets' backbones).
+# ---------------------------------------------------------------------------
+
+class SELayer(nn.Module):
+    """Squeeze-excite with reduction 1 (`SE_module.py:10-24`)."""
+
+    def __init__(self, channels: int, reduction: int = 1):
+        super().__init__()
+        self.fc = nn.Sequential(nn.Linear(channels, channels // reduction),
+                                nn.ReLU(),
+                                nn.Linear(channels // reduction, channels),
+                                nn.Sigmoid())
+
+    def forward(self, x):
+        y = self.fc(x.mean(dim=(2, 3)))
+        return x * y[:, :, None, None]
+
+
+def refuse_dcn(stage_with_dcn: Sequence[bool]) -> None:
+    if any(stage_with_dcn):
+        raise NotImplementedError(
+            "stage_with_dcn: deformable-convolution backbones "
+            "(detect/deform_conv.py) are not ported yet (ROADMAP queue A "
+            "item 11b)")
+
+
+class ResBottleneck(nn.Module):
+    """ResNet-50 bottleneck with optional SE (`SE_Resnet.py:59-141`);
+    `shuffle=True` is the ShuffleResnet variant, whose strided conv2 is
+    PixelUnshuffle(stride) + a stride-1 conv (`ShuffleResnet.py:60-123`)."""
+
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 downsample: bool = False, se: bool = False,
+                 shuffle: bool = False):
+        super().__init__()
+        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.bn1 = nn.BatchNorm2d(planes, eps=BN_EPS)
+        if shuffle and stride > 1:
+            self.conv2 = nn.Sequential(
+                PixelUnshuffle(stride),
+                nn.Conv2d(planes * stride * stride, planes, 3, 1, 1,
+                          bias=False))
+        else:
+            self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
+        self.bn2 = nn.BatchNorm2d(planes, eps=BN_EPS)
+        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        self.bn3 = nn.BatchNorm2d(planes * 4, eps=BN_EPS)
+        self.se = SELayer(planes * 4) if se else None
+        self.downsample = (nn.Sequential(
+            nn.Conv2d(inplanes, planes * 4, 1, stride, bias=False),
+            nn.BatchNorm2d(planes * 4, eps=BN_EPS)) if downsample else None)
+
+    def forward(self, x):
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        if self.se is not None:
+            out = self.se(out)
+        identity = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + identity)
+
+
+class ResNetBackbone(nn.Module):
+    """The bottleneck ResNet of the pose nets (`SE_Resnet.py`,
+    `Resnet.py`, `ShuffleResnet.py`): a 7x7 stem, max pool and four
+    stages; `se` puts squeeze-excite on each stage's first block."""
+
+    def __init__(self, depths: Sequence[int] = (3, 4, 6, 3),
+                 se: bool = False, shuffle: bool = False):
+        super().__init__()
+        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.bn1 = nn.BatchNorm2d(64, eps=BN_EPS)
+        self.maxpool = nn.MaxPool2d(3, 2, 1)
+        inplanes = 64
+        for s, (planes, stride, blocks) in enumerate(
+                zip((64, 128, 256, 512), (1, 2, 2, 2), depths)):
+            layers = []
+            for b in range(blocks):
+                layers.append(ResBottleneck(
+                    inplanes, planes, stride if b == 0 else 1,
+                    downsample=b == 0, se=se and b == 0, shuffle=shuffle))
+                inplanes = planes * 4
+            setattr(self, f"layer{s + 1}", nn.Sequential(*layers))
+
+    def forward(self, x):
+        x = self.maxpool(F.relu(self.bn1(self.conv1(x))))
+        return self.layer4(self.layer3(self.layer2(self.layer1(x))))
+
+
+class PixelUnshuffle(nn.Module):
+    """Space-to-depth in the reference's channel order
+    (`layers/PixelUnshuffle.py:20-28`): output channel (c*r + i)*r + j
+    holds input channel c at offset (i, j), as `F.pixel_unshuffle`."""
+
+    def __init__(self, factor: int):
+        super().__init__()
+        self.factor = factor
+
+    def forward(self, x):
+        return F.pixel_unshuffle(x, self.factor)
+
+
+class DUC(nn.Module):
+    """Dense upsampling conv (`DUC.py:9-29`): conv-BN-ReLU, then
+    PixelShuffle."""
+
+    def __init__(self, inplanes: int, planes: int, upscale_factor: int = 2):
+        super().__init__()
+        self.conv = nn.Conv2d(inplanes, planes, 3, padding=1, bias=False)
+        self.bn = nn.BatchNorm2d(planes, eps=BN_EPS)
+        self.relu = nn.ReLU()
+        self.pixel_shuffle = nn.PixelShuffle(upscale_factor)
+
+    def forward(self, x):
+        return self.pixel_shuffle(self.relu(self.bn(self.conv(x))))

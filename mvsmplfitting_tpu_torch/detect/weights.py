@@ -1,0 +1,250 @@
+"""Weights of the detection nets: reference checkpoints, flax trees and
+seeded random weights.
+
+The port's modules are named as the reference's torch modules, so a
+reference checkpoint (`bytetrack_x_mot17.pth.tar` for YOLOX,
+`fast_res50_256x192.pth` for FastPose) loads with `load_state_dict`
+once `load_checkpoint` has unwrapped it.  `yolox_state_from_flax` and
+`pose_state_from_flax` invert JAX's converters (`detect/convert.py:
+74-195, 329-445`): they turn a flax `{"params", "batch_stats"}` tree of
+arrays back into the reference's `state_dict`, so weights held by the
+JAX package carry across.  Conv kernels go (kH, kW, I, O) -> (O, I, kH,
+kW), dense kernels are transposed, transposed-conv kernels flipped
+back, BatchNorm scale/bias/mean/var become weight/bias/running_mean/
+running_var (with `num_batches_tracked` 0).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A reference checkpoint's state_dict on the CPU, unwrapped from its
+    `model` or `state_dict` entry as JAX's `load_torch_state_dict` does
+    (`convert.py:74-81`)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = ckpt.get("model", ckpt.get("state_dict", ckpt))
+    return {k: v for k, v in sd.items() if isinstance(v, torch.Tensor)}
+
+
+def random_state_dict(model: nn.Module, generator: torch.Generator
+                      ) -> Dict[str, torch.Tensor]:
+    """Seeded random weights for `model` in its own names: conv and dense
+    weights N(0, 1/fan_in), biases N(0, 0.1^2), BatchNorm weights U(0.5,
+    1.5), biases N(0, 0.1^2), running means N(0, 0.2^2) and variances
+    U(0.5, 1.5), so that activations keep their scale through deep nets."""
+    g = generator
+    out = {}
+    bn_types = (nn.BatchNorm2d,)
+    for mname, mod in model.named_modules():
+        prefix = f"{mname}." if mname else ""
+        for pname, p in mod.named_parameters(recurse=False):
+            shape = p.shape
+            if isinstance(mod, bn_types):
+                v = (0.5 + torch.rand(shape, generator=g) if pname == "weight"
+                     else 0.1 * torch.randn(shape, generator=g))
+            elif pname == "weight":
+                fan_in = nn.init._calculate_fan_in_and_fan_out(p)[0]
+                v = torch.randn(shape, generator=g) / fan_in ** 0.5
+            else:
+                v = 0.1 * torch.randn(shape, generator=g)
+            out[prefix + pname] = v
+        for bname, b in mod.named_buffers(recurse=False):
+            if bname == "running_mean":
+                v = 0.2 * torch.randn(b.shape, generator=g)
+            elif bname == "running_var":
+                v = 0.5 + torch.rand(b.shape, generator=g)
+            else:
+                v = torch.zeros_like(b)
+            out[prefix + bname] = v
+    return out
+
+
+# ---- flax trees -> reference state_dicts ----------------------------------
+
+class _Inverse:
+    """Reads a flax tree and writes reference-named numpy arrays."""
+
+    def __init__(self, variables: Mapping):
+        self.p = variables["params"]
+        self.s = variables.get("batch_stats", {})
+        self.sd: Dict[str, np.ndarray] = {}
+
+    @staticmethod
+    def _at(tree, path):
+        for k in path:
+            tree = tree[k]
+        return tree
+
+    def has(self, path) -> bool:
+        try:
+            self._at(self.p, path)
+            return True
+        except KeyError:
+            return False
+
+    def conv(self, path, key: str, bias: bool = False) -> None:
+        k = np.asarray(self._at(self.p, path + ("kernel",)))
+        self.sd[key + ".weight"] = np.ascontiguousarray(
+            k.transpose(3, 2, 0, 1))
+        if bias:
+            self.sd[key + ".bias"] = np.asarray(
+                self._at(self.p, path + ("bias",)))
+
+    def deconv(self, path, key: str) -> None:
+        k = np.asarray(self._at(self.p, path + ("kernel",)))
+        self.sd[key + ".weight"] = np.ascontiguousarray(
+            k.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1])
+
+    def dense(self, path, key: str) -> None:
+        self.sd[key + ".weight"] = np.ascontiguousarray(
+            np.asarray(self._at(self.p, path + ("kernel",))).T)
+        self.sd[key + ".bias"] = np.asarray(self._at(self.p,
+                                                     path + ("bias",)))
+
+    def bn(self, path, key: str) -> None:
+        self.sd[key + ".weight"] = np.asarray(self._at(self.p,
+                                                       path + ("scale",)))
+        self.sd[key + ".bias"] = np.asarray(self._at(self.p,
+                                                     path + ("bias",)))
+        self.sd[key + ".running_mean"] = np.asarray(
+            self._at(self.s, path + ("mean",)))
+        self.sd[key + ".running_var"] = np.asarray(
+            self._at(self.s, path + ("var",)))
+        self.sd[key + ".num_batches_tracked"] = np.zeros((), np.int64)
+
+    def convbn(self, path, key: str) -> None:
+        """JAX's ConvBnAct {conv, bn} -> YOLOX BaseConv `.conv` / `.bn`."""
+        self.conv(path + ("conv",), key + ".conv")
+        self.bn(path + ("bn",), key + ".bn")
+
+    def convbn_numbered(self, path, key: str, n: str) -> None:
+        """JAX's ConvBnAct {conv, bn} -> ResNet `.conv<n>` / `.bn<n>`."""
+        self.conv(path + ("conv",), f"{key}.conv{n}")
+        self.bn(path + ("bn",), f"{key}.bn{n}")
+
+    def csp(self, path, key: str) -> None:
+        for c in ("conv1", "conv2", "conv3"):
+            self.convbn(path + (c,), f"{key}.{c}")
+        i = 0
+        while self.has(path + (f"m{i}",)):
+            for c in ("conv1", "conv2"):
+                self.convbn(path + (f"m{i}", c), f"{key}.m.{i}.{c}")
+            i += 1
+
+    def resnet(self, root: str, key: str, shuffle: bool = False) -> None:
+        """Inverse of `_resnet_backbone` / the FastPose backbone: stages
+        and blocks as the tree holds them, SE and downsample where
+        present, ShuffleResnet's strided conv2 as `conv2.1`."""
+        self.convbn_numbered((root, "stem"), key, "1")
+        for s in range(4):
+            b = 0
+            while self.has((root, f"layer{s + 1}_{b}")):
+                path = (root, f"layer{s + 1}_{b}")
+                src = f"{key}.layer{s + 1}.{b}"
+                self.convbn_numbered(path + ("conv1",), src, "1")
+                c2 = (f"{src}.conv2.1" if shuffle and s > 0 and b == 0
+                      else f"{src}.conv2")
+                self.conv(path + ("conv2", "conv"), c2)
+                self.bn(path + ("conv2", "bn"), f"{src}.bn2")
+                self.conv(path + ("conv3",), f"{src}.conv3")
+                self.bn(path + ("bn3",), f"{src}.bn3")
+                if self.has(path + ("se",)):
+                    self.dense(path + ("se", "fc1"), f"{src}.se.fc.0")
+                    self.dense(path + ("se", "fc2"), f"{src}.se.fc.2")
+                if self.has(path + ("down_conv",)):
+                    self.conv(path + ("down_conv",), f"{src}.downsample.0")
+                    self.bn(path + ("down_bn",), f"{src}.downsample.1")
+                b += 1
+
+    def duc_stage(self, path, key: str) -> None:
+        """Inverse of JAX's `_duc_stage`: convs at Sequential positions
+        1 + 3i, their BNs at 2 + 3i."""
+        n = 0
+        while self.has(path + (f"conv{n}",)):
+            n += 1
+        for i in range(n):
+            self.conv(path + (f"conv{i}",), f"{key}.{1 + 3 * i}")
+            self.bn(path + (f"bn{i}",), f"{key}.{2 + 3 * i}")
+        last = 1 + 3 * n
+        self.conv(path + ("conv_out",), f"{key}.{last}")
+        self.bn(path + ("bn_out",), f"{key}.{last + 1}")
+
+
+def yolox_state_from_flax(variables: Mapping, depth_mul: float = 1.33
+                          ) -> Dict[str, np.ndarray]:
+    """Inverse of JAX's `convert_yolox_sd`: YOLOX flax variables -> the
+    reference's state_dict (numpy).  The CSP depths are read from the
+    tree; `depth_mul` is accepted for symmetry with the converter."""
+    del depth_mul
+    t = _Inverse(variables)
+    bb, fb = "backbone.backbone", ("fpn", "backbone")
+    t.convbn(fb + ("stem", "conv"), bb + ".stem.conv")
+    for name in ("dark2", "dark3", "dark4"):
+        t.convbn(fb + (f"{name}_conv",), f"{bb}.{name}.0")
+        t.csp(fb + (f"{name}_csp",), f"{bb}.{name}.1")
+    t.convbn(fb + ("dark5_conv",), bb + ".dark5.0")
+    t.convbn(fb + ("dark5_spp", "conv1"), bb + ".dark5.1.conv1")
+    t.convbn(fb + ("dark5_spp", "conv2"), bb + ".dark5.1.conv2")
+    t.csp(fb + ("dark5_csp",), bb + ".dark5.2")
+    for name in ("lateral_conv0", "reduce_conv1", "bu_conv2", "bu_conv1"):
+        t.convbn(("fpn", name), f"backbone.{name}")
+    for name in ("C3_p4", "C3_p3", "C3_n3", "C3_n4"):
+        t.csp(("fpn", name), f"backbone.{name}")
+    i = 0
+    while t.has(("head", f"stem{i}")):
+        t.convbn(("head", f"stem{i}"), f"head.stems.{i}")
+        for j in range(2):
+            t.convbn(("head", f"cls_conv{i}_{j}"), f"head.cls_convs.{i}.{j}")
+            t.convbn(("head", f"reg_conv{i}_{j}"), f"head.reg_convs.{i}.{j}")
+        for pred in ("cls", "reg", "obj"):
+            t.conv(("head", f"{pred}_pred{i}"), f"head.{pred}_preds.{i}",
+                   bias=True)
+        i += 1
+    return t.sd
+
+
+def pose_state_from_flax(name: str, variables: Mapping,
+                         shuffle: bool = False) -> Dict[str, np.ndarray]:
+    """Inverse of JAX's pose converters (`convert_fastpose_sd`,
+    `convert_simplepose_sd`, `convert_fastpose_duc_sd`,
+    `convert_fastpose_duc_dense_sd`) for the zoo net `name`;
+    `shuffle=True` for a ShuffleResnet backbone."""
+    from .zoo import PENDING, zoo_key
+    key = zoo_key(name)
+    t = _Inverse(variables)
+    if key in PENDING:
+        raise NotImplementedError(
+            f"pose model {name!r} is not ported yet (ROADMAP queue A item "
+            "11b)")
+    t.resnet("preact", "preact", shuffle=shuffle)
+    if key == "fastpose":
+        for duc in ("duc1", "duc2"):
+            t.conv((duc, "conv", "conv"), f"{duc}.conv")
+            t.bn((duc, "conv", "bn"), f"{duc}.bn")
+        t.conv(("conv_out",), "conv_out", bias=True)
+    elif key == "simplepose":
+        i = 0
+        while t.has((f"deconv{i + 1}",)):
+            t.deconv((f"deconv{i + 1}",), f"deconv_layers.{3 * i}")
+            t.bn((f"bn{i + 1}",), f"deconv_layers.{3 * i + 1}")
+            i += 1
+        t.conv(("final",), "final_layer", bias=True)
+    elif key == "fastpose_duc":
+        for k in range(3):
+            t.duc_stage((f"duc{k + 1}",), f"duc{k + 1}")
+        t.conv(("conv_out",), "conv_out", bias=True)
+    elif key == "fastpose_duc_dense":
+        for k in range(3):
+            t.duc_stage((f"duc{k + 1}",), f"duc.{k}")
+            t.duc_stage((f"duc_dense{k + 1}",), f"duc_dense.{k}")
+        t.conv(("conv_out",), "conv_out", bias=True)
+        t.conv(("conv_out_dense",), "conv_out_dense", bias=True)
+    else:
+        raise ValueError(f"unknown pose model {name!r}")
+    return t.sd

@@ -23,6 +23,7 @@ class StageTimer:
     """Device-synchronized named timers."""
 
     timings: Dict[str, List[float]] = field(default_factory=dict)
+    events: Dict[str, list] = field(default_factory=dict)
 
     @contextlib.contextmanager
     def time(self, name: str, sync_value=None):
@@ -39,6 +40,29 @@ class StageTimer:
                 torch.cuda.synchronize(v.device)
             self.timings.setdefault(name, []).append(
                 time.perf_counter() - t0)
+
+    @contextlib.contextmanager
+    def device(self, name: str, device: torch.device):
+        """CUDA events around the block on `device`'s current stream
+        (nothing on the CPU); `device_totals` reads them."""
+        if device.type != "cuda":
+            yield
+            return
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        try:
+            yield
+        finally:
+            end.record()
+            self.events.setdefault(name, []).append((start, end))
+
+    def device_totals(self) -> Dict[str, float]:
+        """Device seconds per name, summed over the `device` blocks."""
+        if self.events:
+            torch.cuda.synchronize()
+        return {k: sum(s.elapsed_time(e) for s, e in v) / 1e3
+                for k, v in self.events.items()}
 
     def summary(self) -> Dict[str, float]:
         return {k: sum(v) / len(v) for k, v in self.timings.items() if v}
@@ -93,3 +117,34 @@ def set_seed(seed: int = 0) -> torch.Generator:
     np.random.seed(seed)
     torch.manual_seed(seed)
     return torch.Generator().manual_seed(seed)
+
+
+def conv_flops(model: torch.nn.Module, *inputs) -> int:
+    """Floating-point operations (2 per multiply-add) of the convolutions,
+    transposed convolutions and dense layers of one `model(*inputs)`
+    call, counted from the shapes each layer sees (forward hooks); the
+    call runs once, without gradients."""
+    total = [0]
+
+    def hook(mod, args, out):
+        x = args[0]
+        if isinstance(mod, torch.nn.Conv2d):
+            k = mod.kernel_size[0] * mod.kernel_size[1]
+            total[0] += 2 * out.numel() * (mod.in_channels // mod.groups) * k
+        elif isinstance(mod, torch.nn.ConvTranspose2d):
+            k = mod.kernel_size[0] * mod.kernel_size[1]
+            total[0] += (2 * x.numel() * (mod.out_channels // mod.groups)
+                         * k)
+        else:
+            total[0] += 2 * out.numel() * mod.in_features
+
+    kinds = (torch.nn.Conv2d, torch.nn.ConvTranspose2d, torch.nn.Linear)
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, kinds)]
+    try:
+        with torch.inference_mode():
+            model(*inputs)
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]

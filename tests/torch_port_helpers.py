@@ -232,3 +232,91 @@ def write_config(path, **values):
         for k, v in values.items():
             f.write(f"{k}: {json.dumps(v)}\n")
     return str(path)
+
+
+def numpy_state(model, seed: int) -> dict:
+    """A random state_dict for `model` in its (the reference's) names,
+    made with numpy: conv/dense weights N(0, 1/fan_in), biases N(0,
+    0.01), BatchNorm weights U(0.5, 1.5), running means N(0, 0.04) and
+    variances U(0.5, 1.5)."""
+    from torch import nn
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for mname, mod in model.named_modules():
+        pre = f"{mname}." if mname else ""
+        for name, p in mod.named_parameters(recurse=False):
+            shape = tuple(p.shape)
+            if isinstance(mod, nn.BatchNorm2d) and name == "weight":
+                v = rng.uniform(0.5, 1.5, shape)
+            elif name == "weight":
+                fan_in = nn.init._calculate_fan_in_and_fan_out(p)[0]
+                v = rng.standard_normal(shape) / np.sqrt(fan_in)
+            else:
+                v = 0.1 * rng.standard_normal(shape)
+            out[pre + name] = v.astype(np.float32)
+        for name, b in mod.named_buffers(recurse=False):
+            shape = tuple(b.shape)
+            if name == "running_mean":
+                v = (0.2 * rng.standard_normal(shape)).astype(np.float32)
+            elif name == "running_var":
+                v = rng.uniform(0.5, 1.5, shape).astype(np.float32)
+            else:
+                v = np.zeros(shape, np.int64)
+            out[pre + name] = v
+    return out
+
+
+def fixed_yolox_head(sd: dict, level: int = 2, box_scale: float = 1.5,
+                     levels: int = 3) -> dict:
+    """`sd` (a YOLOX state_dict) with its prediction convs zeroed: every
+    anchor of `level` scores sigmoid(2) * sigmoid(3) (above both bands'
+    thresholds) with a box `box_scale` strides wide at its grid point,
+    every other anchor sigmoid(-8) * sigmoid(3).  The boxes, and so the
+    crops, are then the same in both packages whatever the image."""
+    out = dict(sd)
+    for i in range(levels):
+        for pred in ("cls", "reg", "obj"):
+            w = out[f"head.{pred}_preds.{i}.weight"]
+            out[f"head.{pred}_preds.{i}.weight"] = np.zeros_like(w)
+        out[f"head.cls_preds.{i}.bias"] = np.full((1,), 3.0, np.float32)
+        out[f"head.obj_preds.{i}.bias"] = np.full(
+            (1,), 2.0 if i == level else -8.0, np.float32)
+        out[f"head.reg_preds.{i}.bias"] = np.asarray(
+            [0.0, 0.0, np.log(box_scale), np.log(box_scale)], np.float32)
+    return out
+
+
+def write_image_tree(root: str, serial: str = "0000", cams: int = 2,
+                     frames: int = 2, hw=(120, 160), seed: int = 0) -> list:
+    """`root/<serial>/Camera0<v>/<f:03d>.jpg` baseline JPEGs (quality 90)
+    of seeded smooth textures, written with OpenCV; returns the paths
+    per frame."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:hw[0], 0:hw[1]]
+    paths = []
+    for f in range(frames):
+        row = []
+        for v in range(cams):
+            ph = rng.uniform(0, 6, 3)
+            img = np.stack([128 + 90 * np.sin(x / (9.0 + c) + ph[c])
+                            * np.cos(y / (13.0 - c) - ph[c])
+                            for c in range(3)], -1)
+            img = np.clip(img + rng.normal(0, 8, img.shape), 0, 255)
+            d = os.path.join(root, serial, f"Camera0{v}")
+            os.makedirs(d, exist_ok=True)
+            p = os.path.join(d, f"{f:03d}.jpg")
+            cv2.imwrite(p, img.astype(np.uint8),
+                        [cv2.IMWRITE_JPEG_QUALITY, 90])
+            row.append(p)
+        paths.append(row)
+    return paths
+
+
+def to_tensors(sd: dict) -> dict:
+    """A numpy state_dict as CPU tensors (for `load_state_dict`)."""
+    import torch
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in sd.items()}
