@@ -118,8 +118,8 @@ Phases (each prints one line; any failure exits non-zero):
      CPU, per-frame losses at rtol 1e-3, the shared block at rtol 1e-3
      and atol 1e-4 (betas near 0);
  19. [cli] the fitting CLI (`mvsmplfitting_tpu_torch.cli.main`) on
-     workspaces in the reference's layout (`synthetic.write_workspace`),
-     always with `--no_save_images`: `cfg_files/fit_batched.yaml` on 128
+     workspaces in the reference's layout (`synthetic.write_workspace`):
+     `cfg_files/fit_batched.yaml` (`save_images: false`) on 128
      frames x 6 views in this process (B1 and B2 launches >= the LM
      iterations, 128 pkls with the reference's keys and shapes and 128
      meshes of 6890 vertices, median reprojection px < 2, the pkls equal
@@ -128,11 +128,13 @@ Phases (each prints one line; any failure exits non-zero):
      dumped `conf.yaml` read back equal; the session, read, fit and write
      seconds, frames/s and the keypoint loader's route);
      `cfg_files/fit_seq.yaml` on 4 frames of a sequence through a
-     subprocess (frames 1-3 warm-started; per-frame seconds and px), then
-     again with `--resume` (all frames skipped, no file touched);
-     `cfg_files/fit_multi_person_sdf.yaml` on one frame of the two-person
-     fixture (dx0=0.2): one pkl per person in the truth's x order, the
-     refined collision sums below the solo fits';
+     subprocess with `--no_save_images` (frames 1-3 warm-started;
+     per-frame seconds and px), then again with `--resume` (all frames
+     skipped, no file touched); `cfg_files/fit_multi_person_sdf.yaml` on
+     one frame of the two-person fixture (dx0=0.2) with its overlays
+     (`save_overlays_multi` at 1920x1080, six files): one pkl per person
+     in the truth's x order, the refined collision sums below the solo
+     fits';
  20. [keypoints] the keypoint CLI (`mvsmplfitting_tpu_torch.cli.
      keypoints`) at full width: the image reader against OpenCV's
      recorded decodes of `tests/fixtures/images` (sha256); YOLOX-X
@@ -158,13 +160,34 @@ Phases (each prints one line; any failure exits non-zero):
      margin and neighbour differences exceed 1e-4) and bfloat16 against
      fp32 (heatmaps within 5% of their magnitude, keypoints within 8 px
      where the fp32 peak clears twice bfloat16's change);
+ 21. [overlay] the overlays and the adjustment GUI, on the host beside
+     the card: (a) `viz/draw.py`'s primitives (342 recorded cv2 calls in
+     17 groups) and `fill_faces` (393 triangles) against OpenCV's
+     sha256 (`tests/fixtures/overlay/golden.json`); (b) `encode_jpeg` on
+     the six 1920x1080 fixture views at quality 95 and 80 against
+     `cv2.imencode`'s sha256; (c) `render_mesh_overlay` of the committed
+     body (6890 vertices, 13776 faces) with the committed face order on
+     `Camera00.jpg` against JAX's sha256, and this host's projection and
+     shading against the recorded ones (numpy's BLAS must round as the
+     fixture's); (d) `cfg_files/fit_smpl_demo.yaml` as shipped
+     (`save_images: true`) through the CLI on the card, on 4 frames whose
+     six views are the fixture JPEGs: 24 overlays at
+     `images/<serial>/<frame>/<v:02d>.jpg`, each read back with more than
+     1000 pixels changed by over 32 levels, the per-view seconds of read,
+     projection and sort, `fill_faces`, blend and encode, and the
+     overlays' share of the CLI's wall; (f) `cli.adjust_gui` on that
+     workspace, served on 127.0.0.1 in this process: `/`, `/api/state`
+     (six 640x360 JPEGs), a keypoint moved 8 px, `/api/refit`,
+     `/api/state` and `/api/save`, with the first fit's, the state's and
+     the refit's seconds, the losses and the B1/B2 launches;
 then the total seconds, the card line, the kernels JSON line and the
 result line.  Each path's launch counters are set to 0 just before it
 and read just after; the JSON line gives every kernel's launches summed
 over [fit], [collide], [multi], [points] (both runs), [fused], [lbfgs],
 [grad], [gmm], [seq] (all steps), [adjust], [smplx], [smplh], [schur],
 [cli] (its batched and two-person runs; the sequence subprocess's
-launches are its own) and [keypoints] (none).
+launches are its own), [keypoints] (none) and [overlay] (the demo CLI
+and the GUI).
 """
 
 from __future__ import annotations
@@ -1433,12 +1456,13 @@ def cli_phase(dev, launches: dict) -> None:
     with tempfile.TemporaryDirectory(prefix="mvsf_cli_") as tmp:
         absent = os.path.join(tmp, "absent")
 
-        def argv(config, ws, out, *extra):
+        def argv(config, ws, out, *extra, images=False):
             return ["--config", os.path.join(ROOT, "cfg_files", config),
                     "--data_folder", ws["data_folder"], "--cam_param",
                     ws["cam_param"], "--output_folder", out,
                     "--model_folder", absent, "--prior_folder", absent,
-                    "--no_save_images", "--device", dev.type, *extra]
+                    *(() if images else ("--no_save_images",)),
+                    "--device", dev.type, *extra]
 
         # ---- batched mode at full width --------------------------------
         t0 = time.perf_counter()
@@ -1592,16 +1616,22 @@ def cli_phase(dev, launches: dict) -> None:
         ws = write_workspace(os.path.join(tmp, "ws_people"), kind="people",
                              dx0=0.2, device=dev)
         out = os.path.join(tmp, "multi")
-        args = argv("fit_multi_person_sdf.yaml", ws, out)
+        # With the overlays, as the config ships (`save_overlays_multi`).
+        args = argv("fit_multi_person_sdf.yaml", ws, out, images=True)
+        timer = StageTimer()
         torch.cuda.synchronize()
         reset_launches(JK, VK, SK)
         t0 = time.perf_counter()
-        rc, printed = _run_cli(args)
+        rc, printed = _run_cli(args, timer)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got = read_launches(JK, VK, SK)
         launches["cli_multi"] = got
         assert rc == 0, printed
+        img_dir = os.path.join(out, "images", ws["serial"], ws["frames"][0])
+        assert sorted(os.listdir(img_dir)) == [f"{v:02d}.jpg"
+                                               for v in range(6)]
+        images_s = timer.totals()["images"]
         s_ref = [float(v) for v in re.search(
             r"coll \[([^\]]*)\]", printed).group(1).split(",")]
         d = os.path.join(out, "results", ws["serial"], ws["frames"][0])
@@ -1632,6 +1662,7 @@ def cli_phase(dev, launches: dict) -> None:
             sums_solo=_compact(s_solo), sums_refined=",".join(
                 f"{v:.4g}" for v in s_ref),
             losses=",".join(f"{p['loss']:.3f}" for p in people),
+            overlays=6, images_s=f"{images_s:.3f}",
             launches=json.dumps(got).replace(" ", ""))
 
 
@@ -1950,6 +1981,276 @@ def keypoints_phase(dev, launches: dict) -> None:
         bf16_within_8px_all=f"{within:.4f}", launches_b1_b4=0)
 
 
+OVERLAY_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "overlay")
+OV_FRAMES = 4          # [overlay]: frames of the demo config's CLI run
+DRAW_OPS = ("line", "circle", "fill_convex_poly", "rectangle",
+            "ellipse2poly", "add_weighted")
+
+
+def _sha(a) -> str:
+    import hashlib
+    if isinstance(a, np.ndarray):
+        a = np.ascontiguousarray(a).tobytes()
+    return hashlib.sha256(a).hexdigest()
+
+
+def _pattern(h: int, w: int, k: int = 0) -> np.ndarray:
+    """`tools/make_overlay_fixtures.py:pattern`'s image."""
+    y, x, c = np.meshgrid(np.arange(h), np.arange(w), np.arange(3),
+                          indexing="ij")
+    return ((x * 7 + y * 13 + c * 101 + (x * y) % 31 + 57 * k) % 256
+            ).astype(np.uint8)
+
+
+def _replay_primitives(golden: dict, draw) -> list:
+    """The recorded cv2 calls through `viz/draw.py`, group by group on the
+    patterned image (`make_overlay_fixtures.py:replay`); the names of the
+    groups whose sha256 differs from OpenCV's."""
+    h, w = golden["size"]
+    img, other = _pattern(h, w), _pattern(h, w, 1)
+    bad = []
+    for group in golden["primitives"]:
+        calls = group["calls"]
+        if calls[0][0] == "ellipse2poly":
+            digest = _sha(b"".join(draw.ellipse2poly(*c[1:]).tobytes()
+                                   for c in calls))
+        else:
+            for op, *args in calls:
+                if op == "add_weighted":
+                    img = draw.add_weighted(img, args[0], other, *args[1:])
+                else:
+                    getattr(draw, op)(img, *args)
+            digest = _sha(img)
+        if digest != group["sha256"]:
+            bad.append(group["name"])
+    return bad
+
+
+def _per_view(timer, name: str) -> str:
+    v = timer.timings.get(name, [])
+    return f"{sum(v) / len(v):.5f}" if v else "none"
+
+
+def overlay_phase(dev, launches: dict) -> None:
+    """[overlay]: the drawing primitives, the JPEG writer and the
+    full-width render against OpenCV's and JAX's recorded results; the
+    demo config's CLI with its overlays on fixture views; the adjustment
+    GUI served in this process."""
+    import argparse
+    import base64
+    import shutil
+    import tempfile
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from mvsmplfitting_tpu_torch.cli import adjust_gui as G
+    from mvsmplfitting_tpu_torch.config import dump_config, load_config
+    from mvsmplfitting_tpu_torch.data.images import encode_jpeg, read_image
+    from mvsmplfitting_tpu_torch.models.assets import synthetic_smpl
+    from mvsmplfitting_tpu_torch.ops import joint_kernel as JK
+    from mvsmplfitting_tpu_torch.ops import sdf_kernel as SK
+    from mvsmplfitting_tpu_torch.ops import vposer_kernel as VK
+    from mvsmplfitting_tpu_torch.synthetic import write_workspace
+    from mvsmplfitting_tpu_torch.utils.profiling import StageTimer
+    from mvsmplfitting_tpu_torch.viz import draw, overlay
+
+    card = repr(card_line())
+    with open(os.path.join(OVERLAY_FIXTURES, "golden.json")) as f:
+        golden = json.load(f)
+    views = os.path.join(ROOT, "tests", "fixtures", "images", "views")
+
+    # ---- (a) the primitives and fill_faces against OpenCV's bytes ------
+    t0 = time.perf_counter()
+    bad = _replay_primitives(golden, draw)
+    assert not bad, f"primitives differ from OpenCV's: {bad}"
+    ff = golden["fill_faces"]
+    layer = _pattern(200, 240)
+    draw.fill_faces(layer, np.asarray(ff["pts"], np.int32),
+                    np.asarray(ff["colors"], np.float64),
+                    np.asarray(ff["order"], np.int64))
+    assert _sha(layer) == ff["sha256"], "fill_faces differs from OpenCV's"
+    log("overlay", part="primitives", groups=len(golden["primitives"]),
+        calls=sum(len(g["calls"]) for g in golden["primitives"]),
+        fill_faces_triangles=len(ff["order"]), equal="bitwise (sha256)",
+        seconds=f"{time.perf_counter() - t0:.3f}", card=card)
+
+    # ---- (b) the JPEG writer against cv2.imencode's bytes ----------------
+    enc = {"95": [], "80": []}
+    for name, qs in sorted(golden["jpeg"].items()):
+        img = read_image(os.path.join(views, name))
+        for q, digest in qs.items():
+            t0 = time.perf_counter()
+            data = encode_jpeg(img, int(q))
+            enc[q].append(time.perf_counter() - t0)
+            assert _sha(data) == digest, f"{name} q{q}: not cv2's bytes"
+    log("overlay", part="jpeg", views=len(golden["jpeg"]), size="1920x1080",
+        qualities="95,80", equal="bitwise (sha256)",
+        encode_s_q95=f"{np.median(enc['95']):.5f}",
+        encode_s_q80=f"{np.median(enc['80']):.5f}", card=card)
+
+    # ---- (c) the full-width render against JAX's --------------------------
+    ren = golden["render"]
+    verts = np.load(os.path.join(OVERLAY_FIXTURES, "verts.npy"))
+    order = np.load(os.path.join(OVERLAY_FIXTURES, "order.npy")).astype(
+        np.int64)
+    faces = synthetic_smpl("smpl", device="cpu").faces.numpy()
+    R, tr, fo, ce = (np.asarray(ren["camera"][k], np.float32) for k in (
+        "rotation", "translation", "focal", "center"))
+    img = read_image(os.path.join(views, ren["image"]))
+    pts, shade, _ = overlay.face_order(img.shape[:2], verts, faces, R, tr,
+                                       fo, ce, order)
+    base = np.tile(np.asarray((0.65, 0.74, 0.86)) * 255.0, (len(faces), 1))
+    same_pts = _sha(pts) == ren["pts_sha256"]
+    same_colors = _sha(base * shade[:, None]) == ren["colors_sha256"]
+    ot = StageTimer()
+    reps = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = overlay.render_mesh_overlay(img, verts, faces, R, tr, fo, ce,
+                                          order=order, timer=ot)
+        reps.append(time.perf_counter() - t0)
+    assert same_pts and same_colors, (
+        "this host's numpy projects or shades the committed body "
+        f"differently (corners equal: {same_pts}, colors equal: "
+        f"{same_colors}): its BLAS rounds otherwise than the fixture's")
+    assert _sha(out) == ren["sha256"], "render differs from JAX's"
+    log("overlay", part="render", image=ren["image"], faces=len(faces),
+        painted=int((out != img).any(-1).sum()), equal="bitwise (sha256)",
+        render_s=f"{min(reps):.5f}",
+        project_sort_s=_per_view(ot, "overlay.project"),
+        fill_faces_s=_per_view(ot, "overlay.fill"),
+        blend_s=_per_view(ot, "overlay.blend"),
+        numpy=np.__version__, card=card)
+
+    with tempfile.TemporaryDirectory(prefix="mvsf_overlay_") as tmp:
+        # ---- (d) the demo config's CLI, overlays on ------------------------
+        absent = os.path.join(tmp, "absent")
+        ws = write_workspace(os.path.join(tmp, "ws"), num_frames=OV_FRAMES,
+                             model_type="smpllsp", device=dev)
+        for fr in ws["frames"]:
+            for v in range(6):
+                d = os.path.join(ws["data_folder"], "images", ws["serial"],
+                                 f"Camera{v:02d}")
+                os.remove(os.path.join(d, f"{fr}.png"))
+                shutil.copyfile(os.path.join(views, f"Camera{v:02d}.jpg"),
+                                os.path.join(d, f"{fr}.jpg"))
+        config = os.path.join(ROOT, "cfg_files", "fit_smpl_demo.yaml")
+        out = os.path.join(tmp, "demo")
+        args = ["--config", config, "--data_folder", ws["data_folder"],
+                "--cam_param", ws["cam_param"], "--output_folder", out,
+                "--model_folder", absent, "--prior_folder", absent,
+                "--device", dev.type]
+        timer = StageTimer()
+        torch.cuda.synchronize()
+        reset_launches(JK, VK, SK)
+        t0 = time.perf_counter()
+        rc, printed = _run_cli(args, timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_launches(JK, VK, SK)
+        launches["overlay_cli"] = got
+        assert rc == 0, printed
+        assert load_config(config).save_images, "fit_smpl_demo.yaml changed"
+        names = sorted(
+            os.path.relpath(os.path.join(d, n), out)
+            for d, _, ns in os.walk(os.path.join(out, "images")) for n in ns)
+        want = sorted(os.path.join("images", ws["serial"], fr, f"{v:02d}.jpg")
+                      for fr in ws["frames"] for v in range(6))
+        assert names == want, names
+        painted = []
+        for name in names:
+            v = int(os.path.basename(name)[:2])
+            a = read_image(os.path.join(out, name)).astype(np.int16)
+            b = read_image(os.path.join(views, f"Camera{v:02d}.jpg"))
+            painted.append(int((np.abs(a - b).max(-1) > 32).sum()))
+        assert min(painted) > 1000, painted
+        assert got["joint_jacobian"] > 0 and got["vposer_tail"] > 0, got
+        spans = timer.totals()
+        log("overlay", part="cli", config="fit_smpl_demo.yaml",
+            frames=OV_FRAMES, views=6, overlays=len(names),
+            wall_s=f"{wall:.3f}", fit_s=f"{spans['fit']:.3f}",
+            images_s=f"{spans['images']:.3f}",
+            images_share=f"{spans['images'] / wall:.4f}",
+            per_view_read_s=_per_view(timer, "overlay.read"),
+            per_view_project_sort_s=_per_view(timer, "overlay.project"),
+            per_view_fill_faces_s=_per_view(timer, "overlay.fill"),
+            per_view_blend_s=_per_view(timer, "overlay.blend"),
+            per_view_encode_s=_per_view(timer, "overlay.encode"),
+            painted_px_min=min(painted), painted_px_max=max(painted),
+            launches=json.dumps(got).replace(" ", ""), card=card)
+
+        # ---- (f) the adjustment GUI over HTTP ------------------------------
+        cfg = load_config(config, data_folder=ws["data_folder"],
+                          cam_param=ws["cam_param"],
+                          output_folder=os.path.join(tmp, "gui"),
+                          model_folder=absent, prior_folder=absent)
+        gui_cfg = os.path.join(tmp, "gui.yaml")
+        dump_config(cfg, gui_cfg)
+        torch.cuda.synchronize()
+        reset_launches(JK, VK, SK)
+        t0 = time.perf_counter()
+        app = G.build_app(argparse.Namespace(config=gui_cfg, frame=None,
+                                             device=dev.type))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        server = ThreadingHTTPServer(("127.0.0.1", 0), G.make_handler(app))
+        port = server.server_address[1]
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        # Only this process's server is asked; no proxy is consulted.
+        opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+        def ask(path, body=None):
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}{path}",
+                data=None if body is None else json.dumps(body).encode(),
+                method="GET" if body is None else "POST")
+            with opener.open(req, timeout=600) as r:
+                data = r.read()
+            return json.loads(data) if path != "/" else data
+
+        try:
+            page = ask("/")
+            assert b"/api/refit" in page
+            t0 = time.perf_counter()
+            st = ask("/api/state")
+            state_s = time.perf_counter() - t0
+            assert len(st["views"]) == 6, len(st["views"])
+            for vw in st["views"]:
+                assert (vw["width"], vw["height"]) == (640, 360), vw["width"]
+                jpg = base64.b64decode(vw["img"])
+                assert jpg[:2] == b"\xff\xd8", "not a JPEG"
+            loss0 = st["loss"]
+            x, y, _ = st["views"][0]["keypoints"][5]
+            ask("/api/keypoint", {"view": 0, "joint": 5, "x": x + 8.0,
+                                  "y": y})
+            t0 = time.perf_counter()
+            loss1 = ask("/api/refit", {})["loss"]
+            torch.cuda.synchronize()
+            refit_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            st2 = ask("/api/state")
+            state2_s = time.perf_counter() - t0
+            saved = ask("/api/save", {})["path"]
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join()
+        got = read_launches(JK, VK, SK)
+        launches["gui"] = got
+        assert os.path.exists(saved), saved
+        assert np.isfinite(loss0) and np.isfinite(loss1), (loss0, loss1)
+        assert abs(st2["loss"] - loss1) <= 1e-6 * max(1.0, abs(loss1))
+        assert got["joint_jacobian"] > 0 and got["vposer_tail"] > 0, got
+        log("overlay", part="gui", frame=f"{ws['serial']}/{ws['frames'][0]}",
+            fit_s=f"{fit_s:.3f}", state_s=f"{state_s:.3f}",
+            state_after_refit_s=f"{state2_s:.3f}", refit_s=f"{refit_s:.3f}",
+            loss_before=f"{loss0:.4f}", loss_after=f"{loss1:.4f}",
+            moved="view 0 joint 5 +8 px (640-wide view)",
+            launches=json.dumps(got).replace(" ", ""), card=card)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2139,6 +2440,7 @@ def main() -> int:
     schur_phase(dev, path)
     cli_phase(dev, path)
     keypoints_phase(dev, path)
+    overlay_phase(dev, path)
     # Every kernel's launches summed over the fit paths.
     for name in kernels:
         kernels[name]["launches"] = sum(p.get(name, 0) for p in path.values())

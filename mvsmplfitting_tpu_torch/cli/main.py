@@ -8,14 +8,15 @@ cfg_files/fit_smpl.yaml`, `README.md:16`):
 
 It takes the JAX CLI's configs and arguments and writes the same
 outputs: `conf.yaml`, `results/<serial>/<frame>/000.pkl` (or
-`<p:03d>.pkl` per person) and `meshes/.../000.obj`.  Three modes, chosen
+`<p:03d>.pkl` per person), `meshes/.../000.obj` and, with `save_images`,
+the overlays `images/<serial>/<frame>/<view:02d>.jpg` (`viz/overlay.py`,
+drawn and encoded without OpenCV).  Three modes, chosen
 as in JAX: `num_people > 1` fits the people of each frame together
 (`fit_people`), `batch_frames > 1` outside sequences fits frames in
 batches (`batched_fit_frames`), anything else frame by frame, with the
 sequence warm start under `is_seq` and `--resume`.  The fit runs on
-`--device` (CUDA unless ``--device cpu``; no fall back to the CPU).
-Overlay images (`save_images`) are not ported yet: with them on, the
-CLI stops before it loads anything.
+`--device` (CUDA unless ``--device cpu``; no fall back to the CPU); the
+overlays are drawn on the host.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from ..models.smpl import SMPLParams, smpl_forward
 from ..parallel.batched import BatchedFitInputs, batched_fit_frames
 from ..session import Session, build_session
 from ..utils.profiling import StageTimer
+from ..viz.overlay import save_overlays, save_overlays_multi
 
 
 def parse_args(argv=None):
@@ -60,7 +62,9 @@ def parse_args(argv=None):
     p.add_argument("--resume", action="store_true", default=False,
                    help="skip frames whose result pkl already exists")
     p.add_argument("--no_save_images", dest="save_images",
-                   action="store_false", default=None)
+                   action="store_false", default=None,
+                   help="skip the overlay images (images/<serial>/<frame>/"
+                        "<view>.jpg)")
     p.add_argument("--no_save_meshes", dest="save_meshes",
                    action="store_false", default=None)
     p.add_argument("--device", type=str, default="cuda",
@@ -75,9 +79,11 @@ Item = Tuple[int, FrameData, str]
 
 def _save_outputs(cfg, sess: Session, result: FitResult,
                   items: Sequence[Item], result_root: str,
-                  mesh_root: str) -> None:
+                  mesh_root: str) -> Optional[np.ndarray]:
     """The pkl of each item and, with `save_meshes`, its mesh: the body
-    with the saved (extremity-zeroed) pose, as JAX's CLI writes it."""
+    with the saved (extremity-zeroed) pose, as JAX's CLI writes it.
+    Returns those bodies' vertices (one (V, 3) float32 array per item)
+    when meshes or images are saved, else None."""
     rows = [r for r, _, _ in items]
     host = {k: t.detach()[rows].cpu().numpy() for k, t in (
         ("betas", result.params.betas),
@@ -95,8 +101,10 @@ def _save_outputs(cfg, sess: Session, result: FitResult,
                          loss=float(host["loss"][j]))
         saved.append(save_result_pkl(os.path.join(
             result_root, frame.serial, frame.frame_name, f"{stem}.pkl"), out))
-    if not cfg.save_meshes:
-        return
+    if not (cfg.save_meshes or cfg.save_images):
+        return None
+    if not items:                       # a frame with no one in it
+        return np.zeros((0, sess.assets.v_template.shape[0], 3), np.float32)
     dev = result.loss.device
     params = SMPLParams(**{
         f.name: (None if getattr(result.params, f.name) is None
@@ -111,14 +119,30 @@ def _save_outputs(cfg, sess: Session, result: FitResult,
                                  body_pose=stacked("body_pose"))
     verts, _ = smpl_forward(sess.assets, params)
     verts = verts.cpu().numpy()
+    if cfg.save_meshes:
+        faces = sess.assets.faces.cpu().numpy()
+        for j, (_, frame, stem) in enumerate(items):
+            save_obj(os.path.join(mesh_root, frame.serial, frame.frame_name,
+                                  f"{stem}.obj"), verts[j], faces)
+    return verts
+
+
+def _save_images(cfg, sess: Session, frames: Sequence[FrameData],
+                 verts: Optional[np.ndarray], image_root: str,
+                 timer: StageTimer) -> None:
+    """The overlays of each frame's views (JAX `main.py:70-85`)."""
+    if not cfg.save_images:
+        return
     faces = sess.assets.faces.cpu().numpy()
-    for j, (_, frame, stem) in enumerate(items):
-        save_obj(os.path.join(mesh_root, frame.serial, frame.frame_name,
-                              f"{stem}.obj"), verts[j], faces)
+    with timer.time("images"):
+        for frame, v in zip(frames, verts):
+            save_overlays(os.path.join(image_root, frame.serial,
+                                       frame.frame_name),
+                          frame, sess.cameras, v, faces, timer=timer)
 
 
 def run_multi_person(cfg, sess: Session, result_root: str, mesh_root: str,
-                     timer: StageTimer) -> int:
+                     image_root: str, timer: StageTimer) -> int:
     """Fit up to `num_people` per frame (solo fits, then the joint
     collision refinement when interpenetration is on).  The reference
     has no such path (its solver asserts batch 1,
@@ -160,15 +184,27 @@ def run_multi_person(cfg, sess: Session, result_root: str, mesh_root: str,
               f" coll {np.round(coll, 3).tolist()} "
               f"in {time.time() - t0:.2f}s")
         with timer.time("write"):
-            _save_outputs(cfg, sess, results,
-                          [(p, frame, f"{p:03d}") for p in range(P)
-                           if live[p]], result_root, mesh_root)
+            items = [(p, frame, f"{p:03d}") for p in range(P) if live[p]]
+            verts = _save_outputs(cfg, sess, results, items, result_root,
+                                  mesh_root)
+        if cfg.save_images:
+            # Every live person in one depth-sorted render per view
+            # (JAX `main.py:130-170`).
+            people = np.zeros((P, sess.assets.v_template.shape[0], 3),
+                              np.float32)
+            for j, (p, _, _) in enumerate(items):
+                people[p] = verts[j]
+            with timer.time("images"):
+                save_overlays_multi(
+                    os.path.join(image_root, frame.serial, frame.frame_name),
+                    frame, sess.cameras, people,
+                    sess.assets.faces.cpu().numpy(), live=live, timer=timer)
         n_frames += 1
     return n_frames
 
 
 def run_batched(cfg, sess: Session, result_root: str, mesh_root: str,
-                timer: StageTimer) -> int:
+                image_root: str, timer: StageTimer) -> int:
     """Batched mode: init and fit `batch_frames` frames per call, the
     last chunk padded with repeats of its last frame."""
     dev = sess.device
@@ -199,9 +235,10 @@ def run_batched(cfg, sess: Session, result_root: str, mesh_root: str,
         print(f"  batch of {len(chunk)} fit in {time.time() - t0:.2f}s "
               f"(mean loss {mean_loss:.2f})")
         with timer.time("write"):
-            _save_outputs(cfg, sess, out,
-                          [(b, f, "000") for b, f in enumerate(chunk)],
-                          result_root, mesh_root)
+            verts = _save_outputs(cfg, sess, out,
+                                  [(b, f, "000") for b, f in enumerate(chunk)],
+                                  result_root, mesh_root)
+        _save_images(cfg, sess, chunk, verts, image_root, timer)
         n_done += len(chunk)
     return n_done
 
@@ -223,7 +260,7 @@ def _resume_state(path: str, dev: torch.device):
 
 
 def run_frames(cfg, sess: Session, result_root: str, mesh_root: str,
-               resume: bool, timer: StageTimer) -> int:
+               image_root: str, resume: bool, timer: StageTimer) -> int:
     """Frame by frame, each a batch of one; under `is_seq` every frame
     after the first warm-starts from the one before."""
     dev = sess.device
@@ -283,25 +320,22 @@ def run_frames(cfg, sess: Session, result_root: str, mesh_root: str,
         prev = (result.params, result.z, result.loss)
         n_frames += 1
         with timer.time("write"):
-            _save_outputs(cfg, sess, result, [(0, frame, "000")],
-                          result_root, mesh_root)
+            verts = _save_outputs(cfg, sess, result, [(0, frame, "000")],
+                                  result_root, mesh_root)
+        _save_images(cfg, sess, [frame], verts, image_root, timer)
     return n_frames
 
 
 def main(argv: Optional[List[str]] = None,
          timer: Optional[StageTimer] = None) -> int:
     """Run the CLI; `timer` collects the seconds of the session build
-    ("session") and the dataset reads ("read"), fits ("fit") and result
-    writes ("write") when given."""
+    ("session") and the dataset reads ("read"), fits ("fit"), result
+    writes ("write") and overlays ("images", and per view "overlay.read",
+    ".project", ".fill", ".blend", ".encode") when given."""
     args = parse_args(argv)
     overrides = {k: v for k, v in vars(args).items()
                  if k not in ("config", "resume", "device") and v is not None}
     cfg = load_config(args.config, **overrides)
-    if cfg.save_images:
-        raise NotImplementedError(
-            "save_images: the overlay images (viz/overlay.py) are not "
-            "ported yet (ROADMAP queue A item 10); pass --no_save_images "
-            "or set save_images: false in the config")
     timer = StageTimer() if timer is None else timer
     with timer.time("session"):
         sess = build_session(cfg, device=args.device)
@@ -309,6 +343,7 @@ def main(argv: Optional[List[str]] = None,
     out_root = cfg.output_folder
     result_root = os.path.join(out_root, cfg.result_folder)
     mesh_root = os.path.join(out_root, cfg.mesh_folder)
+    image_root = os.path.join(out_root, "images")
     os.makedirs(out_root, exist_ok=True)
     dump_config(cfg, os.path.join(out_root, "conf.yaml"))
 
@@ -319,12 +354,14 @@ def main(argv: Optional[List[str]] = None,
 
     start = time.time()
     if cfg.num_people > 1:
-        n_frames = run_multi_person(cfg, sess, result_root, mesh_root, timer)
+        n_frames = run_multi_person(cfg, sess, result_root, mesh_root,
+                                    image_root, timer)
     elif cfg.batch_frames > 1 and not cfg.is_seq:
-        n_frames = run_batched(cfg, sess, result_root, mesh_root, timer)
+        n_frames = run_batched(cfg, sess, result_root, mesh_root,
+                               image_root, timer)
     else:
         n_frames = run_frames(cfg, sess, result_root, mesh_root,
-                              args.resume, timer)
+                              image_root, args.resume, timer)
     elapsed = time.time() - start
     print(f"Processed {n_frames} frame(s) in {elapsed:.2f}s "
           f"({n_frames / max(elapsed, 1e-9):.3f} frames/s)")

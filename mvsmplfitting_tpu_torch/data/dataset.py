@@ -56,8 +56,9 @@ def _jpeg_size(path: str) -> Optional[Tuple[int, int]]:
 
 def load_image(path: str) -> np.ndarray:
     """RGB float image in [0, 1] (the reference's convention,
-    `data_parser.py:371`), read by `data/images.py`; no fitting path
-    reads pixels."""
+    `data_parser.py:371`), read by `data/images.py`.  No fit reads
+    pixels: only the overlays (`viz/overlay.py`, through
+    `images.read_image`) and the keypoint front end do."""
     from .images import read_image
     return read_image(path)[:, :, ::-1].astype(np.float32) / 255.0
 

@@ -27,75 +27,46 @@ source and flags; a failed build raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
 import struct
-import subprocess
-import threading
 import zlib
 from pathlib import Path
 
 import numpy as np
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "image_decode.cpp"
-BUILD_DIR = SOURCE.parent.parent.parent / "build" / "host"
-GXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
-
-_lock = threading.Lock()
-_lib = None
+from ..utils.host_build import HostLibrary
 
 
 class ImageError(ValueError):
     """An image that `read_image` cannot or will not decode."""
 
 
+def _declare_decode(lib: ctypes.CDLL) -> None:
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.jpeg_info.argtypes = [u8p, ctypes.c_size_t, ip, ip, ip,
+                              ctypes.c_char_p, ctypes.c_int]
+    lib.jpeg_decode_bgr.argtypes = [u8p, ctypes.c_size_t, u8p,
+                                    ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_char_p, ctypes.c_int]
+    lib.png_unfilter.argtypes = [u8p, u8p, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_int, ctypes.c_char_p,
+                                 ctypes.c_int]
+    for f in (lib.jpeg_info, lib.jpeg_decode_bgr, lib.png_unfilter):
+        f.restype = ctypes.c_int
+
+
+_DECODER = HostLibrary("image_decode", _declare_decode)
+SOURCE = _DECODER.source
+
+
 def library_path() -> Path:
-    h = hashlib.sha1(SOURCE.read_bytes())
-    h.update(" ".join(GXX_FLAGS).encode())
-    return BUILD_DIR / f"libimage_decode_{h.hexdigest()[:12]}.so"
-
-
-def _compiler() -> str:
-    for name in (os.environ.get("CXX"), "g++", "c++"):
-        if name and shutil.which(name):
-            return shutil.which(name)
-    raise RuntimeError("no C++ compiler found (tried $CXX, g++, c++): the "
-                       "image decoder is built from csrc/image_decode.cpp")
+    return _DECODER.path()
 
 
 def load_library() -> ctypes.CDLL:
     """The decoder library, built on first use."""
-    global _lib
-    with _lock:
-        if _lib is not None:
-            return _lib
-        out = library_path()
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [_compiler(), *GXX_FLAGS, "-o", str(tmp), str(SOURCE)],
-                capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError("building csrc/image_decode.cpp failed:\n"
-                                   + proc.stdout + proc.stderr)
-            os.replace(tmp, out)
-        lib = ctypes.CDLL(str(out))
-        u8p = ctypes.POINTER(ctypes.c_uint8)
-        ip = ctypes.POINTER(ctypes.c_int)
-        lib.jpeg_info.argtypes = [u8p, ctypes.c_size_t, ip, ip, ip,
-                                  ctypes.c_char_p, ctypes.c_int]
-        lib.jpeg_decode_bgr.argtypes = [u8p, ctypes.c_size_t, u8p,
-                                        ctypes.c_int, ctypes.c_int,
-                                        ctypes.c_char_p, ctypes.c_int]
-        lib.png_unfilter.argtypes = [u8p, u8p, ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_char_p,
-                                     ctypes.c_int]
-        for f in (lib.jpeg_info, lib.jpeg_decode_bgr, lib.png_unfilter):
-            f.restype = ctypes.c_int
-        _lib = lib
-        return lib
+    return _DECODER.load()
 
 
 def _ptr(a: np.ndarray):
@@ -269,3 +240,50 @@ def read_image(path: str) -> np.ndarray:
     if data.startswith(PNG_SIGNATURE):
         return decode_png(data, path)
     raise ImageError(f"{path}: neither a JPEG nor a PNG file")
+
+
+# ---- JPEG writing ----------------------------------------------------------
+
+def _declare_encode(lib: ctypes.CDLL) -> None:
+    lib.jpeg_encode_bgr.argtypes = [ctypes.POINTER(ctypes.c_uint8),
+                                    ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                    ctypes.POINTER(ctypes.c_uint8),
+                                    ctypes.c_int64]
+    lib.jpeg_encode_bgr.restype = ctypes.c_int64
+
+
+_ENCODER = HostLibrary("jpeg_encode", _declare_encode)
+JPEG_EXTENSIONS = (".jpg", ".jpeg")
+
+
+def encode_jpeg(img: np.ndarray, quality: int = 95) -> bytes:
+    """`cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, quality])`'s
+    bytes for an (H, W, 3) uint8 BGR image (`csrc/jpeg_encode.cpp`)."""
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError("encode_jpeg takes an (H, W, 3) uint8 BGR image, "
+                         f"got {img.shape} {img.dtype}")
+    h, w = img.shape[:2]
+    if not (0 < h <= 65535 and 0 < w <= 65535):
+        raise ValueError(f"encode_jpeg: image size {w}x{h} outside JPEG's "
+                         "1-65535")
+    lib = _ENCODER.load()
+    cap = h * w + 4096
+    while True:
+        out = np.empty(cap, np.uint8)
+        n = lib.jpeg_encode_bgr(_ptr(img), w, h, int(quality), _ptr(out), cap)
+        if n <= cap:
+            return out[:n].tobytes()
+        cap = n
+
+
+def write_image(path: str, img: np.ndarray, quality: int = 95) -> None:
+    """`cv2.imwrite(path, img)` for `.jpg`/`.jpeg` paths (the same bytes;
+    `quality` as `IMWRITE_JPEG_QUALITY`); any other extension raises
+    `ImageError` naming the file."""
+    path = os.fspath(path)
+    if os.path.splitext(path)[1].lower() not in JPEG_EXTENSIONS:
+        raise ImageError(f"{path}: only JPEG (.jpg, .jpeg) is written")
+    data = encode_jpeg(img, quality)
+    with open(path, "wb") as f:
+        f.write(data)

@@ -22,6 +22,7 @@ Images are (H, W, 3) uint8 tensors; crops and heatmaps are NCHW.
 
 from __future__ import annotations
 
+import sys
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -30,16 +31,19 @@ import torch
 INTER_RESIZE_COEF_SCALE = 2048     # OpenCV's 11-bit interpolation weights
 
 
-def _linear_taps(dst: int, src: int, clamp_low_weight: bool):
+def _linear_taps(dst: int, src: int, clamp_low_weight: bool,
+                 inv_scale: Optional[float] = None):
     """OpenCV's INTER_LINEAR source indices and fixed-point weights for
     one axis (`imgproc/src/resize.cpp`, `resize()`'s coefficient loops).
+    The source step is `1 / inv_scale`, `inv_scale` defaulting to
+    `dst / src` (a given output size); `cv2.resize`'s `fx`/`fy` pass it.
 
     `fx` is computed in double and rounded to float, floored, and its
     fraction rounded half to even times 2048.  Horizontally a tap left of
     0 or at/after the last sample collapses to that sample with weight
     (2048, 0); vertically the weights stay and the rows are clamped.
     """
-    scale = 1.0 / (dst / src)
+    scale = 1.0 / (dst / src if inv_scale is None else inv_scale)
     f = ((np.arange(dst) + 0.5) * scale - 0.5).astype(np.float32)
     s = np.floor(f).astype(np.int64)
     f = (f - s.astype(np.float32)).astype(np.float32)
@@ -55,18 +59,21 @@ def _linear_taps(dst: int, src: int, clamp_low_weight: bool):
     return s0, s1, w0.astype(np.int32), w1.astype(np.int32)
 
 
-def resize_linear_u8(img: torch.Tensor, out_w: int, out_h: int
+def resize_linear_u8(img: torch.Tensor, out_w: int, out_h: int,
+                     fx: Optional[float] = None, fy: Optional[float] = None
                      ) -> torch.Tensor:
     """`cv2.resize(img, (out_w, out_h), interpolation=INTER_LINEAR)` for
-    an (H, W, C) uint8 tensor, in integer arithmetic on its device."""
+    an (H, W, C) uint8 tensor, in integer arithmetic on its device; with
+    `fx`/`fy` the taps step by `1 / fx` and `1 / fy`, as OpenCV's do when
+    the scale factors are given (`resize_linear_u8_by`)."""
     h, w = img.shape[:2]
     dev = img.device
 
     def t(a):
         return torch.as_tensor(a, device=dev)
 
-    x0, x1, a0, a1 = (t(a) for a in _linear_taps(out_w, w, True))
-    y0, y1, b0, b1 = (t(a) for a in _linear_taps(out_h, h, False))
+    x0, x1, a0, a1 = (t(a) for a in _linear_taps(out_w, w, True, fx))
+    y0, y1, b0, b1 = (t(a) for a in _linear_taps(out_h, h, False, fy))
     src = img.to(torch.int32)
     hor = src[:, x0] * a0[None, :, None] + src[:, x1] * a1[None, :, None]
     s0 = hor[y0] >> 4
@@ -74,6 +81,21 @@ def resize_linear_u8(img: torch.Tensor, out_w: int, out_h: int
     out = (((b0[:, None, None] * s0) >> 16)
            + ((b1[:, None, None] * s1) >> 16) + 2) >> 2
     return out.clamp_(0, 255).to(torch.uint8)
+
+
+def resize_linear_u8_by(img: torch.Tensor, fx: float, fy: float
+                        ) -> torch.Tensor:
+    """`cv2.resize(img, None, fx=fx, fy=fy)` (INTER_LINEAR): the output
+    size is `w * fx`, `h * fy` rounded half to even, and the taps step by
+    `1 / fx`, `1 / fy` (not `w / out_w`, which can pick other taps).  An
+    exact halving, which OpenCV sends to INTER_AREA, is refused."""
+    h, w = img.shape[:2]
+    eps = sys.float_info.epsilon
+    if abs(1.0 / fx - 2.0) < eps and abs(1.0 / fy - 2.0) < eps:
+        raise ValueError("resize_linear_u8_by: an exact halving is "
+                         "INTER_AREA in OpenCV, not ported")
+    out_w, out_h = round(w * fx), round(h * fy)
+    return resize_linear_u8(img, out_w, out_h, fx, fy)
 
 
 def letterbox(img: torch.Tensor, input_hw: Tuple[int, int] = (800, 1440),

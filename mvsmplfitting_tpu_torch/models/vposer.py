@@ -30,7 +30,7 @@ class VPoserWeights:
     dec_fc2_b: torch.Tensor  # (512,)
     dec_out_w: torch.Tensor  # (512, 138)
     dec_out_b: torch.Tensor  # (138,)
-    # Encoder (kept so the bundled npz loads whole; unused by the fit).
+    # Encoder: `encode_mean` (the adjustment GUI's warm start).
     enc_bn1_mean: Optional[torch.Tensor] = None
     enc_bn1_var: Optional[torch.Tensor] = None
     enc_bn1_w: Optional[torch.Tensor] = None
@@ -70,6 +70,22 @@ def decode(weights: VPoserWeights, z: torch.Tensor) -> torch.Tensor:
     aa = _tail(x.reshape(x.shape[:-1] + (NUM_JOINTS, 6)))
     return aa.reshape(z.shape[:-1] + (NUM_JOINTS * 3,))
 
+
+
+def encode_mean(weights: VPoserWeights, body_pose: torch.Tensor,
+                eps: float = 1e-5) -> torch.Tensor:
+    """Posterior mean of a body pose (..., 69) -> z (..., 32), BatchNorm
+    in eval mode (JAX `models/vposer.py:106-115`)."""
+    w = weights
+    if w.enc_mu_w is None:
+        raise ValueError("encode_mean: these VPoser weights carry no encoder")
+    x = (body_pose - w.enc_bn1_mean) * torch.rsqrt(w.enc_bn1_var + eps) \
+        * w.enc_bn1_w + w.enc_bn1_b
+    x = _lrelu(x @ w.enc_fc1_w + w.enc_fc1_b)
+    x = (x - w.enc_bn2_mean) * torch.rsqrt(w.enc_bn2_var + eps) \
+        * w.enc_bn2_w + w.enc_bn2_b
+    x = _lrelu(x @ w.enc_fc2_w + w.enc_fc2_b)
+    return x @ w.enc_mu_w + w.enc_mu_b
 
 def mlp_head(w: VPoserWeights, z: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,1 +1,2 @@
-"""Keypoint-format tables (port of `viz/`); drawing waits for ROADMAP queue A item 10."""
+"""Overlays, skeleton drawing and video export (port of `viz/`), drawn
+with OpenCV's primitives in host C++ (`viz/draw.py`)."""

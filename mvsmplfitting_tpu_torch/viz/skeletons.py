@@ -1,7 +1,8 @@
-"""Per-format skeleton tables (port of `viz/skeletons.py:28-211`).
+"""Per-format skeleton tables and `vis_frame` (port of
+`viz/skeletons.py`), drawn with `viz/draw.py` (OpenCV's primitives in
+host C++) where JAX draws with cv2.
 
-`vis_frame` (drawn with cv2 there) waits for the overlay port (ROADMAP
-queue A item 10).  Rebuild of the reference's drawing surface
+Rebuild of the reference's drawing surface
 (`alphapose_core/alphapose/utils/vis.py`, 865 LoC): `vis_frame` /
 `vis_frame_fast` there re-declare one (limb, point-color, line-color)
 triple inline per joint count (`vis.py:289-432`).  Here each format is
@@ -26,8 +27,13 @@ Joint-index topology sources (reference `file:line`):
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+
+from . import draw
 
 Pair = Tuple[int, int]
 Color = Tuple[int, int, int]
@@ -205,3 +211,102 @@ def get_color_fast(idx: int) -> Color:
     pool = (RED, (0, 255, 0), BLUE, (255, 255, 0), (0, 255, 255),
             (0, 165, 255), PURPLE, WHITE)
     return pool[idx % 8]
+
+
+def vis_frame(img: np.ndarray, keypoints: np.ndarray,
+              kp_scores: Optional[np.ndarray] = None, *,
+              fmt: Optional[str] = None, vis_thresh: float = 0.05,
+              track_id: Optional[int] = None, fast: bool = False,
+              box: Optional[Sequence[float]] = None) -> np.ndarray:
+    """Draw one person's skeleton in place with the reference's
+    semantics (`vis.py:434-520`): joints above threshold are circles
+    blended at their confidence, limbs filled ellipse sticks of width
+    `(s_a + s_b) + 1` blended at `0.5*(s_a+s_b) - 0.1`.  ``fast=True`` is
+    `vis_frame_fast` (`vis.py:249-271`): opaque circles and lines of
+    thickness `2*int(s_a+s_b) + 1`.  ``track_id`` recolors everything
+    from the track pool; ``box`` draws the xyxy detection box.
+    `img` is a C-contiguous (H, W, 3) uint8 BGR array."""
+    kp = np.asarray(keypoints, np.float64)
+    sc = (np.asarray(kp_scores, np.float64) if kp_scores is not None
+          else (kp[:, 2] if kp.shape[1] > 2
+                else np.ones(len(kp), np.float64)))
+    kp = kp[:, :2]
+    spec = skeleton_for(len(kp), fmt)
+    if spec.synthetic_neck and len(kp) == spec.num_joints:
+        kp = np.concatenate([kp, 0.5 * (kp[5:6] + kp[6:7])])
+        sc = np.concatenate([sc, 0.5 * (sc[5:6] + sc[6:7])])
+    track_color = (get_color_fast(abs(int(track_id)))
+                   if track_id is not None else None)
+
+    if box is not None:
+        draw.rectangle(img, (int(box[0]), int(box[1])),
+                       (int(box[2]), int(box[3])), track_color or BLUE, 2)
+
+    finite = (np.isfinite(kp).all(axis=1)
+              & (np.abs(kp) < 1e8).all(axis=1))
+    visible = finite & (sc > vis_thresh)
+    # Truncation, not rounding: the reference casts with int()
+    # (`vis.py:252,454`).
+    pts = np.clip(np.nan_to_num(kp), -1e8, 1e8).astype(int)
+
+    for n in range(len(kp)):
+        if not visible[n]:
+            continue
+        in_table = n < len(spec.point_colors)
+        color = track_color or (spec.point_colors[n] if in_table
+                                else WHITE)
+        if fast:
+            # Beyond-table joints draw as r1 rings (`vis.py:260`).
+            if in_table:
+                draw.circle(img, tuple(pts[n]), 3, color, -1)
+            else:
+                draw.circle(img, tuple(pts[n]), 1, WHITE, 2)
+        else:
+            bg = img.copy()
+            if in_table:
+                draw.circle(bg, tuple(pts[n]), 2, color, -1)
+                a = float(np.clip(sc[n], 0.0, 1.0))
+            else:
+                # `vis.py:485-490`: r1 ring, doubled transparency.
+                draw.circle(bg, tuple(pts[n]), 1, WHITE, 2)
+                a = float(np.clip(sc[n] * 2.0, 0.0, 1.0))
+            img[:] = draw.add_weighted(bg, a, img, 1 - a, 0)
+    for i, (a, b) in enumerate(spec.limbs):
+        if a >= len(kp) or b >= len(kp) or not (visible[a] and visible[b]):
+            continue
+        in_table = i < len(spec.line_colors)
+        color = track_color or (spec.line_colors[i] if in_table
+                                else WHITE)
+        if fast:
+            # Beyond-table limbs are 1-px white lines (`vis.py:271`).
+            if in_table:
+                draw.line(img, tuple(pts[a]), tuple(pts[b]), color,
+                          2 * int(sc[a] + sc[b]) + 1)
+            else:
+                draw.line(img, tuple(pts[a]), tuple(pts[b]), WHITE, 1)
+            continue
+        bg = img.copy()
+        if in_table:
+            mx, my = 0.5 * (pts[a] + pts[b])
+            dx, dy = (pts[a] - pts[b]).astype(np.float64)
+            length = math.hypot(dx, dy)
+            angle = math.degrees(math.atan2(dy, dx))
+            stick = draw.ellipse2poly(
+                (int(mx), int(my)),
+                (int(length / 2), int(sc[a] + sc[b] + 1)),
+                int(angle), 0, 360, 1)
+            draw.fill_convex_poly(bg, stick, color)
+        else:
+            # `vis.py:511-512`: thin white line beyond the table.
+            draw.line(bg, tuple(pts[a]), tuple(pts[b]), WHITE, 1)
+        # The reference's limb alpha branches on the last index of the
+        # points loop (`vis.py:513-516`), not on the limb: the soft
+        # 0.5*(sa+sb)-0.1 applies only to formats whose joint count fits
+        # the point-color table (coco17/mpii16/halpe26); the others draw
+        # every limb at min(1, sa+sb).
+        if len(kp) - 1 < len(spec.point_colors):
+            alpha = float(np.clip(0.5 * (sc[a] + sc[b]) - 0.1, 0.0, 1.0))
+        else:
+            alpha = float(np.clip(sc[a] + sc[b], 0.0, 1.0))
+        img[:] = draw.add_weighted(bg, alpha, img, 1 - alpha, 0)
+    return img

@@ -42,6 +42,7 @@ from mvsmplfitting_tpu_torch.data.dataset import frame_to_observations
 from mvsmplfitting_tpu_torch.data.results import load_result_pkl
 from mvsmplfitting_tpu_torch.fitting.initialize import init_guess, warm_start
 from mvsmplfitting_tpu_torch.fitting.stages import fit_frame
+from mvsmplfitting_tpu_torch.models.smpl import SMPLParams, smpl_forward
 from mvsmplfitting_tpu_torch.session import build_session
 
 from torch_port_helpers import (arrays, cli_workspace, jax_joint_model,
@@ -219,17 +220,18 @@ def test_sequence_cli_matches_library_and_resumes(ws, tmp_path, capsys):
 
 
 def test_save_images_refused_before_loading(ws, tmp_path):
+    """`save_images` is no longer refused (the overlays are ported); the
+    one refusal left before anything is loaded or written is a missing
+    card when `--device cpu` is not given."""
     cfg = write_config(tmp_path / "i.yaml", model_type="smpl")
+    assert tcli.parse_args(["--config", cfg]).save_images is None
     out = tmp_path / "out"
-    with pytest.raises(NotImplementedError,
-                       match="--no_save_images.*|item 10"):
-        tcli.main(_argv(ws, cfg, str(out), "--device", "cpu"))
-    assert not out.exists()
     if not torch.cuda.is_available():
         # No GPU and no --device cpu: the default device raises.
-        with pytest.raises(RuntimeError, match="CUDA"):
-            tcli.main(_argv(ws, cfg, str(out), "--no_save_images"))
-        assert not out.exists()
+        for extra in ((), ("--no_save_images",)):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                tcli.main(_argv(ws, cfg, str(out), *extra))
+            assert not out.exists()
 
 
 def test_two_person_solo_cli(tmp_path, capsys):
@@ -249,3 +251,165 @@ def test_two_person_solo_cli(tmp_path, capsys):
     np.testing.assert_allclose(x, [-0.2, 0.2], atol=0.1)
     assert (out / "meshes" / ws["serial"] / ws["frames"][0]
             / "001.obj").exists()
+
+
+# ---------------------------------------------------------------- overlays
+
+def _cli_verts(sess, result_dir, stems):
+    """The bodies `cli/main.py:_save_outputs` draws: the saved
+    (extremity-zeroed) pose of each pkl, in one forward."""
+    pkls = [load_result_pkl(os.path.join(result_dir, f"{s}.pkl"))
+            for s in stems]
+
+    def cat(k):
+        return torch.as_tensor(np.concatenate([d[k] for d in pkls]))
+
+    params = SMPLParams(betas=cat("betas"), global_orient=cat("pose")[:, :3],
+                        body_pose=cat("body_pose"), transl=cat("transl"),
+                        scale=cat("scale")[:, 0])
+    return smpl_forward(sess.assets, params)[0].numpy()
+
+
+OVERLAY_CASES = {
+    # config, workspace kind, frames, people; only the demo case runs
+    # JAX's CLI (its first run in a process costs ~20-50 s here); the seq
+    # case runs the port's CLI in a subprocess.
+    "demo": ("fit_smpl_demo.yaml", "frames", 1, 1),
+    "seq": ("fit_seq.yaml", "sequence", 2, 1),
+    "multi": ("fit_multi_person_sdf.yaml", "people", 1, 2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(OVERLAY_CASES))
+def test_overlays_as_jax(case, tmp_path, capsys):
+    """The three shipped configs with `save_images` on (their own or the
+    default), on a workspace of black 1920x1080 PNGs (the synthetic
+    cameras' size): the port's CLI writes JAX's overlay layout,
+    `images/<serial>/<frame>/<v:02d>.jpg` for every frame and view, and
+    each overlay is, byte for byte, both the port's and JAX's
+    `save_overlays` (`save_overlays_multi` with JAX's live mask) of the
+    bodies its pkls hold.  The demo case also runs JAX's CLI: the same
+    files, and decoded, >= 99.5% of the pixels within 4 levels of JAX's
+    (the fits differ at round-off, which can move a projected corner
+    across a pixel).
+
+    Cut for time: both CLIs fit with `--optim_type adam --maxiters 1`
+    (30 steps a stage; the LM's budget has a floor of 60 iterations),
+    and the two-person config without its collision term (a minute of
+    CPU here; `chip_smoke.py` [cli] runs it with the overlays on the
+    card), which leaves the overlays' path as it is."""
+    import subprocess
+    import sys
+
+    import cv2
+
+    from mvsmplfitting_tpu.viz import overlay as JO
+    from mvsmplfitting_tpu_torch.viz import overlay as TO
+    name, kind, n_frames, people = OVERLAY_CASES[case]
+    config = os.path.join(os.path.dirname(__file__), "..", "cfg_files", name)
+    if case == "multi":
+        with open(config) as f:
+            text = f.read().replace("interpenetration: true",
+                                    "interpenetration: false")
+        assert "interpenetration: false" in text
+        config = str(tmp_path / name)
+        with open(config, "w") as f:
+            f.write(text)
+    cfg = load_config(config)
+    assert cfg.save_images
+    ws = cli_workspace(tmp_path / "ws", kind=kind,
+                       **({} if kind == "people" else
+                          dict(num_frames=n_frames, model_type="smpllsp")))
+    outs = {k: str(tmp_path / k) for k in ("port", "jax")}
+    args = {k: _argv(ws, config, v, "--optim_type", "adam", "--maxiters",
+                     "1") for k, v in outs.items()}
+    if case == "seq":
+        # The subprocess's torch takes this module's thread count: the
+        # bodies' last bits depend on it, and they are drawn again below.
+        root = os.path.join(os.path.dirname(__file__), "..")
+        env = dict(os.environ, OMP_NUM_THREADS=str(torch.get_num_threads()))
+        proc = subprocess.run(
+            [sys.executable, "-m", "mvsmplfitting_tpu_torch.cli.main",
+             *args["port"], "--device", "cpu"], capture_output=True,
+            text=True, cwd=root, timeout=600, env=env)
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+    else:
+        assert tcli.main(args["port"] + ["--device", "cpu"]) == 0
+    if case == "demo":
+        assert jcli.main(args["jax"]) == 0
+    capsys.readouterr()
+
+    sess = build_session(load_config(
+        config, data_folder=ws["data_folder"], cam_param=ws["cam_param"],
+        model_folder=os.path.join(ws["root"], "absent"),
+        prior_folder=os.path.join(ws["root"], "absent")), device="cpu")
+    faces = sess.assets.faces.numpy()
+    want = []
+    for frame in sess.dataset:
+        d = os.path.join(ws["serial"], frame.frame_name)
+        result_dir = os.path.join(outs["port"], "results", d)
+        again = {k: str(tmp_path / k / d) for k in ("port_again",
+                                                    "jax_again")}
+        if people == 1:
+            verts = _cli_verts(sess, result_dir, ["000"])[0]
+            TO.save_overlays(again["port_again"], frame, sess.cameras,
+                             verts, faces)
+            JO.save_overlays(again["jax_again"], frame, sess.cameras,
+                             verts, faces)
+        else:
+            live = frame.person_mask.max(axis=0)
+            verts = _cli_verts(sess, result_dir,
+                               [f"{p:03d}" for p in range(people) if live[p]])
+            everyone = np.zeros((people,) + verts.shape[1:], np.float32)
+            everyone[live > 0] = verts
+            for k, mod in (("port_again", TO), ("jax_again", JO)):
+                mod.save_overlays_multi(again[k], frame, sess.cameras,
+                                        everyone, faces, live=live)
+        for v in range(6):
+            n = os.path.join("images", d, f"{v:02d}.jpg")
+            want.append(n)
+            with open(os.path.join(outs["port"], n), "rb") as f:
+                ours = f.read()
+            for k in again:
+                with open(os.path.join(again[k], f"{v:02d}.jpg"), "rb") as f:
+                    assert ours == f.read(), (k, n)
+            a = cv2.imdecode(np.frombuffer(ours, np.uint8), cv2.IMREAD_COLOR)
+            painted = (a.max(-1) > 32).sum()
+            assert painted > 1000, (n, painted)
+            if case == "demo":
+                b = cv2.imread(os.path.join(outs["jax"], n))
+                close = (np.abs(a.astype(int) - b).max(-1) <= 4).mean()
+                assert close >= 0.995, (n, close)
+
+    def files(root):
+        return sorted(os.path.relpath(os.path.join(d, n), root)
+                      for d, _, ns in os.walk(os.path.join(root, "images"))
+                      for n in ns)
+    assert files(outs["port"]) == sorted(want)
+    assert len(want) == 6 * n_frames
+    if case == "demo":
+        assert files(outs["jax"]) == sorted(want)
+
+
+def test_frame_without_people_saves_no_body(tmp_path):
+    """A multi-person frame where no one is seen writes no pkl or mesh
+    and hands its overlays no body (JAX draws none either), where the
+    stacking of no results used to raise."""
+    import types
+
+    from mvsmplfitting_tpu_torch.fitting.stages import FitResult
+    cfg = types.SimpleNamespace(save_meshes=True, save_images=True)
+    sess = types.SimpleNamespace(assets=types.SimpleNamespace(
+        v_template=torch.zeros((6890, 3))))
+    zeros = torch.zeros((2, 10))
+    result = FitResult(
+        params=SMPLParams(betas=zeros, global_orient=zeros[:, :3],
+                          body_pose=torch.zeros((2, 69)),
+                          transl=zeros[:, :3], scale=torch.ones(2)),
+        z=torch.zeros((2, 32)), body_pose=torch.zeros((2, 69)),
+        loss=torch.zeros(2), stage_losses=torch.zeros((2, 4)),
+        lm_iters=torch.zeros((2, 4)))
+    verts = tcli._save_outputs(cfg, sess, result, [], str(tmp_path / "r"),
+                               str(tmp_path / "m"))
+    assert verts.shape == (0, 6890, 3)
+    assert not (tmp_path / "r").exists() and not (tmp_path / "m").exists()
