@@ -180,14 +180,42 @@ Phases (each prints one line; any failure exits non-zero):
      (six 640x360 JPEGs), a keypoint moved 8 px, `/api/refit`,
      `/api/state` and `/api/save`, with the first fit's, the state's and
      the refit's seconds, the losses and the B1/B2 launches;
+ 22. [stream] the keypoint CLI's other modes at full width, with
+     `keypoint_weights`' YOLOX-X and FastPose checkpoints: (a) the six
+     fixture JPEGs muxed into a Motion-JPEG AVI as written and with
+     their DHT segments stripped, every frame read back equal (sha256)
+     to `read_image` of its JPEG, demux and decode ms a frame, an H264
+     fourcc refused naming the file; (b) `--video` on a 12-frame clip of
+     those views with `--out_video` and `--results_dir`: frames/s, the
+     per-stage seconds a frame (demux, decode, the nets' stages, json,
+     draw, encode, results), 12 JSONs read back by the fitting data
+     layer's reader, the results file (one entry a person) and the drawn
+     video re-read (12 frames); (c) `--pose_cfg` with three configs in
+     the reference's layout, all 256x192: FastPose-DCN (halpe26,
+     CONV_DIM 256, STAGE_WITH_DCN [F, T, T, T], offset convs at 3x gain:
+     their |offset| mean and max and the share of taps outside the
+     image), HRNet-W32 (coco17, convolutions at half gain) and
+     HarDNet-68 (coco17), each through the CLI on 2 frames x 6 views,
+     the pose net's device seconds a frame and its conv FLOPs' share of
+     the fp32 peak, view 0's heatmaps on the card against the CPU at
+     atol 1e-4; (d) `--video --smpl` with HybrIK (256x256, seed 0) on 4
+     frames: smpl-results.json with the writer's keys, the overlay
+     video's 4 frames, the net's and the IK's device seconds a frame;
+     view 0's crops on the card against the CPU (uvd, shape, phi, camera
+     and the peaks at atol 2e-4, rtol 1e-3), and the IK on the same
+     inputs on both: the root's Kabsch rotation (cuSOLVER's batched 3x3
+     SVD against LAPACK's) within 1e-5, the vertices within
+     `HYBRIK_VERT_ATOL` (1e-4 m) for every person whose swings stay
+     clear of antiparallel (1 + cos >= 1e-4), the others reported apart;
+     no B1-B4 launch in any of its CLI runs;
 then the total seconds, the card line, the kernels JSON line and the
 result line.  Each path's launch counters are set to 0 just before it
 and read just after; the JSON line gives every kernel's launches summed
 over [fit], [collide], [multi], [points] (both runs), [fused], [lbfgs],
 [grad], [gmm], [seq] (all steps), [adjust], [smplx], [smplh], [schur],
 [cli] (its batched and two-person runs; the sequence subprocess's
-launches are its own), [keypoints] (none) and [overlay] (the demo CLI
-and the GUI).
+launches are its own), [keypoints] (none), [overlay] (the demo CLI and
+the GUI) and [stream] (none).
 """
 
 from __future__ import annotations
@@ -1691,9 +1719,51 @@ def _obj_bias_shift(decoded: torch.Tensor, thresh: float, target: int
     return hi
 
 
-def keypoints_phase(dev, launches: dict) -> None:
+def keypoint_weights(dev):
+    """YOLOX-X and FastPose (26 joints) checkpoints in the reference's
+    names from seed 0, made once in `main` for [keypoints] and [stream]:
+    (det_sd, pose_sd, objectness shift, the six fixture views'
+    letterboxed batch on `dev`).
+
+    Random YOLOX-X weights at `random_state_dict`'s gain are chaotic on
+    raw 0-255 pixels: activations reach ~1e4, box logits ~600, and fp32
+    rounding moves box logits by ~1e-3 (~1e-2 with BatchNorm statistics
+    set from data); at half that gain on the BaseConv convolutions the
+    net is contractive (fp32 moves its outputs by ~3e-7 against float64,
+    on a CPU at 256x448).  The box-size biases get log(6) (boxes ~6
+    strides wide), and the objectness bias is shifted so that ~KP_TARGET
+    anchors a view pass `--det_thresh` 0.1 (`_obj_bias_shift`).
+    FastPose's random weights keep heatmaps O(1) on normalized crops and
+    are used as they are."""
+    from mvsmplfitting_tpu_torch.data.images import read_image
+    from mvsmplfitting_tpu_torch.detect import predictor as TP
+    from mvsmplfitting_tpu_torch.detect.fastpose import FastPose
+    from mvsmplfitting_tpu_torch.detect.weights import random_state_dict
+    from mvsmplfitting_tpu_torch.detect.yolox import YOLOX
+    dev_imgs = [torch.from_numpy(read_image(os.path.join(
+        IMAGE_FIXTURES, "views", f"Camera0{v}.jpg"))).to(dev)
+        for v in range(6)]
+    gen = torch.Generator().manual_seed(0)
+    det_sd = random_state_dict(YOLOX(), gen)
+    pose_sd = random_state_dict(FastPose(26), gen)
+    for k in det_sd:
+        if k.endswith(".conv.weight"):
+            det_sd[k] *= 0.5
+    for i in range(3):
+        det_sd[f"head.reg_preds.{i}.bias"][2:] += float(np.log(6.0))
+    det = TP.PersonDetector(det_sd, device=dev)
+    batch, _ = det.letterbox_batch(dev_imgs)
+    shift = _obj_bias_shift(det.forward(batch), det.conf_thresh,
+                            KP_TARGET * len(dev_imgs))
+    for i in range(3):
+        det_sd[f"head.obj_preds.{i}.bias"] += shift
+    return det_sd, pose_sd, shift, batch
+
+
+def keypoints_phase(dev, launches: dict, weights) -> None:
     """[keypoints]: the keypoint CLI (`mvsmplfitting_tpu_torch.cli.
-    keypoints`) at full width on the committed 1920x1080 views."""
+    keypoints`) at full width on the committed 1920x1080 views, with
+    `keypoint_weights`' checkpoints."""
     import contextlib
     import hashlib
     import io
@@ -1707,7 +1777,6 @@ def keypoints_phase(dev, launches: dict) -> None:
     from mvsmplfitting_tpu_torch.detect.fastpose import FastPose
     from mvsmplfitting_tpu_torch.detect.preprocess import (
         bbox_to_center_scale, crop_affine, decode_margins, heatmap_to_coords)
-    from mvsmplfitting_tpu_torch.detect.weights import random_state_dict
     from mvsmplfitting_tpu_torch.detect.yolox import YOLOX
     from mvsmplfitting_tpu_torch.ops import joint_kernel as JK
     from mvsmplfitting_tpu_torch.ops import sdf_kernel as SK
@@ -1741,33 +1810,11 @@ def keypoints_phase(dev, launches: dict) -> None:
         refused=sum(r is None for r in recorded.values()),
         matches="opencv_sha256", decode_ms_1080p=f"{1e3 * read_s:.2f}")
 
-    # ---- weights from seed 0 in the reference's names ---------------
-    # Random YOLOX-X weights at `random_state_dict`'s gain are chaotic on
-    # raw 0-255 pixels: activations reach ~1e4, box logits ~600, and fp32
-    # rounding moves box logits by ~1e-3 (~1e-2 with BatchNorm statistics
-    # set from data); at half that gain on the BaseConv convolutions the
-    # net is contractive (fp32 moves its outputs by ~3e-7 against
-    # float64, on a CPU at 256x448).  The box-size biases
-    # get log(6) (boxes ~6 strides wide), and the objectness bias is
-    # shifted so that ~KP_TARGET anchors a view pass `--det_thresh` 0.1
-    # (`_obj_bias_shift`).  FastPose's random weights keep heatmaps O(1)
-    # on normalized crops and are used as they are.
+    # ---- weights from seed 0 in the reference's names (see
+    # `keypoint_weights`) ------------------------------------------------
     t0 = time.perf_counter()
-    gen = torch.Generator().manual_seed(0)
-    det_sd = random_state_dict(YOLOX(), gen)
-    pose_sd = random_state_dict(FastPose(26), gen)
-    for k in det_sd:
-        if k.endswith(".conv.weight"):
-            det_sd[k] *= 0.5
-    for i in range(3):
-        det_sd[f"head.reg_preds.{i}.bias"][2:] += float(np.log(6.0))
     dev_imgs = [torch.from_numpy(i).to(dev) for i in imgs]
-    det = TP.PersonDetector(det_sd, device=dev)
-    batch, _ = det.letterbox_batch(dev_imgs)
-    shift = _obj_bias_shift(det.forward(batch), det.conf_thresh,
-                            KP_TARGET * len(views))
-    for i in range(3):
-        det_sd[f"head.obj_preds.{i}.bias"] += shift
+    det_sd, pose_sd, shift, batch = weights
     # bfloat16 moves these near-uniform scores by more than their spread
     # and rounds them to a few hundred values (~700 candidates a view at
     # 0.1): its run takes the least threshold that passes at most
@@ -2251,6 +2298,467 @@ def overlay_phase(dev, launches: dict) -> None:
             launches=json.dumps(got).replace(" ", ""), card=card)
 
 
+ST_FRAMES = 12         # [stream] (b): frames of the fixture clip
+ST_CFG_FRAMES = 2      # [stream] (c): frames x the six views a config
+ST_SMPL_FRAMES = 4     # [stream] (d): HybrIK's frames
+ST_CHECK_CROPS = 8     # [stream]: crops of each card-vs-CPU check
+HYBRIK_VERT_ATOL = 1e-4  # [stream] (d): IK vertices card vs CPU, meters
+
+# The reference's config layout (`configs/halpe_26/resnet/
+# 256x192_res50_lr1e-3_2x-dcn.yaml`, `configs/coco/hrnet/
+# 256x192_w32_lr1e-3.yaml`, `configs/coco/hardnet/
+# 256x192_hard68_lr1e-3_1x.yaml`), cut to the keys the readers see.
+_CFG_HEAD = """\
+DATASET:
+  TRAIN:
+    TYPE: '{dataset}'
+    ROOT: './data/{root}/'
+DATA_PRESET:
+  TYPE: 'simple'
+  SIGMA: 2
+  NUM_JOINTS: {joints}
+  IMAGE_SIZE:
+  - 256
+  - 192
+  HEATMAP_SIZE:
+  - 64
+  - 48
+"""
+ST_CONFIGS = {
+    "fastpose_dcn": ("Halpe_26", "halpe", 26, """\
+MODEL:
+  TYPE: 'FastPose'
+  PRETRAINED: ''
+  NUM_LAYERS: 50
+  CONV_DIM: 256
+  DCN:
+    MODULATED: false
+    DEFORM_GROUP: 1
+    FALLBACK_ON_STRIDE: false
+  STAGE_WITH_DCN:
+  - false
+  - true
+  - true
+  - true
+"""),
+    "hrnet_w32": ("Mscoco", "coco", 17, """\
+MODEL:
+  TYPE: 'PoseHighResolutionNet'
+  PRETRAINED: ''
+  NUM_LAYERS: 32
+  FINAL_CONV_KERNEL: 1
+  STAGE2:
+    NUM_MODULES: 1
+    NUM_BRANCHES: 2
+    NUM_BLOCKS: [4, 4]
+    NUM_CHANNELS: [32, 64]
+    BLOCK: 'BASIC'
+    FUSE_METHOD: 'SUM'
+  STAGE3:
+    NUM_MODULES: 4
+    NUM_BRANCHES: 3
+    NUM_BLOCKS: [4, 4, 4]
+    NUM_CHANNELS: [32, 64, 128]
+    BLOCK: 'BASIC'
+    FUSE_METHOD: 'SUM'
+  STAGE4:
+    NUM_MODULES: 3
+    NUM_BRANCHES: 4
+    NUM_BLOCKS: [4, 4, 4, 4]
+    NUM_CHANNELS: [32, 64, 128, 256]
+    BLOCK: 'BASIC'
+    FUSE_METHOD: 'SUM'
+"""),
+    "hardnet68": ("Mscoco", "coco", 17, """\
+MODEL:
+  TYPE: 'HarDNetPose'
+  PRETRAINED: ''
+  NUM_LAYERS: 68
+  FINAL_CONV_KERNEL: 1
+"""),
+}
+# Random weights as `keypoint_weights` makes them: HRNet's convolutions at
+# half gain (at full gain its residual branches grow the heatmaps to ~2e4,
+# where fp32 rounding alone passes 1e-4; at half ~5); the DCN offset
+# convolutions at 3x gain, for offsets of a few pixels that send some
+# taps out of the image.
+ST_CONV_GAIN = {"hrnet_w32": 0.5}
+ST_OFFSET_GAIN = 3.0
+
+
+def _mux(path, jpegs, width, height, fps=30.0):
+    from mvsmplfitting_tpu_torch.viz.video import MjpegAviWriter
+    with open(path, "wb") as f:
+        avi = MjpegAviWriter(f, width, height, fps)
+        for j in jpegs:
+            avi.write(j)
+        avi.close()
+
+
+def _strip_dht(data: bytes) -> bytes:
+    """A JPEG's bytes without its DHT segments (Motion-JPEG cameras leave
+    them out; decoders take the standard tables)."""
+    out, p = bytearray(data[:2]), 2
+    while p < len(data):
+        marker = data[p + 1]
+        n = int.from_bytes(data[p + 2:p + 4], "big")
+        if marker == 0xDA:
+            out += data[p:]
+            break
+        if marker != 0xC4:
+            out += data[p:p + 2 + n]
+        p += 2 + n
+    return bytes(out)
+
+
+def _offset_stats(net, x):
+    """|offset| mean and max of every deformable conv2 of `net` on `x`,
+    and the share of their sampling points outside the input (3x3 taps,
+    padding 1)."""
+    stats = []
+
+    def hook(mod, args, out):
+        inp = args[0]
+        H, W = inp.shape[2:]
+        stride = mod.stride[0]
+        n, _, oh, ow = out.shape
+        off = out.reshape(n, 9, 2, oh, ow).float()
+        ty = torch.arange(3, device=out.device).repeat_interleave(3)
+        tx = torch.arange(3, device=out.device).repeat(3)
+        oy = torch.arange(oh, device=out.device) * stride - 1
+        ox = torch.arange(ow, device=out.device) * stride - 1
+        y = oy[None, :, None] + ty[:, None, None] + off[:, :, 0]
+        xx = ox[None, None, :] + tx[:, None, None] + off[:, :, 1]
+        outside = (y <= -1) | (y >= H) | (xx <= -1) | (xx >= W)
+        stats.append((off.abs().mean().item(), off.abs().max().item(),
+                      outside.float().mean().item()))
+
+    hs = [m.conv2_offset.register_forward_hook(hook) for m in net.modules()
+          if getattr(m, "dcn", False)]
+    try:
+        with torch.inference_mode():
+            net(x)
+    finally:
+        for h in hs:
+            h.remove()
+    return (float(np.mean([s[0] for s in stats])),
+            max(s[1] for s in stats), float(np.mean([s[2] for s in stats])))
+
+
+def stream_phase(dev, launches: dict, weights) -> None:
+    """[stream]: the keypoint CLI's streaming, config and SMPL modes at
+    full width on the committed 1920x1080 views, with `keypoint_weights`'
+    YOLOX-X and FastPose checkpoints."""
+    import contextlib
+    import hashlib
+    import io
+    import shutil
+    import tempfile
+
+    from mvsmplfitting_tpu_torch.cli import keypoints as kcli
+    from mvsmplfitting_tpu_torch.data import video as V
+    from mvsmplfitting_tpu_torch.data.images import decode_jpeg, read_image
+    from mvsmplfitting_tpu_torch.data.keypoints import read_keypoints_json
+    from mvsmplfitting_tpu_torch.detect import predictor as TP
+    from mvsmplfitting_tpu_torch.detect.config import (
+        estimator_kwargs_from_config, model_spec_from_config,
+        pose_model_from_config)
+    from mvsmplfitting_tpu_torch.detect.hybrik import (Simple3DPoseSMPLCam,
+                                                       uvd_to_xyz)
+    from mvsmplfitting_tpu_torch.detect.preprocess import (
+        bbox_to_center_scale, crop_affine, normalize_crops)
+    from mvsmplfitting_tpu_torch.detect.weights import random_state_dict
+    from mvsmplfitting_tpu_torch.models import hybrik as HM
+    from mvsmplfitting_tpu_torch.ops import joint_kernel as JK
+    from mvsmplfitting_tpu_torch.ops import sdf_kernel as SK
+    from mvsmplfitting_tpu_torch.ops import vposer_kernel as VK
+    from mvsmplfitting_tpu_torch.utils.profiling import StageTimer, conv_flops
+
+    card = repr(card_line())
+    views = [os.path.join(IMAGE_FIXTURES, "views", f"Camera0{v}.jpg")
+             for v in range(6)]
+    raw = []
+    for p in views:
+        with open(p, "rb") as f:
+            raw.append(f.read())
+    imgs = [read_image(p) for p in views]
+    h, w = imgs[0].shape[:2]
+
+    def sha(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    def run_cli(args, tag):
+        timer = StageTimer()
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        reset_launches(JK, VK, SK)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = kcli.main(args, timer=timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_launches(JK, VK, SK)
+        launches[f"stream_{tag}"] = got
+        assert rc == 0, buf.getvalue()
+        assert not any(got.values()), f"[stream] {tag} launched {got}"
+        return timer, wall
+
+    def per_frame(timer, frames, names):
+        t = timer.timings
+        return ",".join(f"{k}:{sum(t.get(k, [])) / frames:.4f}"
+                        for k in names)
+
+    with tempfile.TemporaryDirectory(prefix="mvsf_stream_") as tmp:
+        # ---- (a) the reader: the six views as MJPEG frames --------------
+        want = [sha(i) for i in imgs]
+        stripped = [_strip_dht(r) for r in raw]
+        assert all(b"\xff\xc4" not in s[:s.index(b"\xff\xda")]
+                   for s in stripped)
+        times = {}
+        for tag, frames in (("as_written", raw), ("dht_stripped",
+                                                  stripped)):
+            path = os.path.join(tmp, f"{tag}.avi")
+            _mux(path, frames, w, h)
+            info = V.avi_info(path)
+            assert (info.width, info.height, info.fourcc) == (w, h, "MJPG")
+            demux, decode, got = [], [], []
+            it = V.avi_frames(path, info)
+            while True:
+                t0 = time.perf_counter()
+                data = next(it, None)
+                demux.append(time.perf_counter() - t0)
+                if data is None:
+                    break
+                t0 = time.perf_counter()
+                got.append(sha(decode_jpeg(data)))
+                decode.append(time.perf_counter() - t0)
+            assert got == want, f"{tag}: frames differ from read_image"
+            times[tag] = (float(np.median(demux)), float(np.median(decode)))
+        bad = os.path.join(tmp, "h264.avi")
+        with open(os.path.join(tmp, "as_written.avi"), "rb") as f:
+            body = f.read()
+        with open(bad, "wb") as f:
+            f.write(body.replace(b"MJPG", b"H264"))
+        try:
+            V.avi_info(bad)
+            raise AssertionError("an H264 fourcc was not refused")
+        except V.VideoError as e:
+            assert bad in str(e) and "'H264'" in str(e), str(e)
+        log("stream", part="reader", frames=6, size=f"{w}x{h}",
+            equal="read_image sha256, as written and DHT-stripped",
+            demux_ms=f"{1e3 * times['as_written'][0]:.3f}",
+            decode_ms=f"{1e3 * times['as_written'][1]:.2f}",
+            decode_ms_dht_stripped=f"{1e3 * times['dht_stripped'][1]:.2f}",
+            refused="H264", card=card)
+
+        # ---- weights and checkpoints ----------------------------------------
+        dev_imgs = [torch.from_numpy(i).to(dev) for i in imgs]
+        det_sd, pose_sd = weights[:2]
+        yolox_ckpt = os.path.join(tmp, "bytetrack_x_mot17.pth.tar")
+        pose_ckpt = os.path.join(tmp, "fast_res50_256x192.pth")
+        torch.save({"model": det_sd}, yolox_ckpt)
+        torch.save(pose_sd, pose_ckpt)
+        det = TP.PersonDetector(det_sd, device=dev)
+        boxes0 = det.detect_batch(dev_imgs[:1])[0][:ST_CHECK_CROPS]
+        assert len(boxes0) > 0, "no box on view 0"
+
+        # ---- (b) --video on ST_FRAMES frames --------------------------------
+        clip = os.path.join(tmp, "clip.avi")
+        _mux(clip, [raw[i % 6] for i in range(ST_FRAMES)], w, h)
+        ws = os.path.join(tmp, "ws")
+        out_video = os.path.join(tmp, "drawn.avi")
+        res = os.path.join(tmp, "results")
+        timer, wall = run_cli([
+            "--video", clip, "--out_video", out_video, "--results_dir", res,
+            "--data_folder", ws, "--yolox_ckpt", yolox_ckpt, "--pose_ckpt",
+            pose_ckpt, "--device", dev.type], "video")
+        jsons = sorted(os.listdir(os.path.join(ws, "keypoints", "stream")))
+        assert jsons == [f"{i:06d}_keypoints.json"
+                         for i in range(ST_FRAMES)], jsons
+        people = [len(read_keypoints_json(os.path.join(
+            ws, "keypoints", "stream", n), 26)) for n in jsons]
+        with open(os.path.join(res, "alphapose-results.json")) as f:
+            results = json.load(f)
+        assert len(results) == sum(people), (len(results), people)
+        drawn = list(V.read_video(out_video))
+        assert len(drawn) == ST_FRAMES and drawn[0][1].shape == (h, w, 3)
+        dev_s = timer.device_totals()
+        stages = ("demux", "decode", "letterbox", "detector", "nms", "crop",
+                  "pose", "heatmap", "json", "draw", "encode", "results")
+        loop = sum(sum(v) for v in timer.timings.values())
+        log("stream", part="video", frames=ST_FRAMES, size=f"{w}x{h}",
+            fps=f"{ST_FRAMES / wall:.3f}", wall_s=f"{wall:.3f}",
+            loop_fps=f"{ST_FRAMES / loop:.3f}",
+            people=",".join(map(str, people)), results=len(results),
+            video_frames=len(drawn),
+            per_frame_s=per_frame(timer, ST_FRAMES, stages),
+            per_frame_dev_s=",".join(f"{k}:{v / ST_FRAMES:.4f}"
+                                     for k, v in dev_s.items()),
+            launches_b1_b4=0, card=card)
+
+        # ---- (c) --pose_cfg: three reference configs ------------------------
+        cfg_ws = os.path.join(tmp, "cfg_ws")
+        for v, src in enumerate(views):
+            d = os.path.join(cfg_ws, "images", "0000", f"Camera0{v}")
+            os.makedirs(d)
+            for fr in range(ST_CFG_FRAMES):
+                shutil.copy(src, os.path.join(d, f"{fr:06d}.jpg"))
+        image0 = TP.rgb01(dev_imgs[0])
+        for name, (dataset, root, joints, model_text) in ST_CONFIGS.items():
+            cfg_path = os.path.join(tmp, f"{name}.yaml")
+            with open(cfg_path, "w") as f:
+                f.write(_CFG_HEAD.format(dataset=dataset, root=root,
+                                         joints=joints) + model_text)
+            spec = model_spec_from_config(cfg_path)
+            est = estimator_kwargs_from_config(cfg_path)
+            net = est["model"]
+            sd = random_state_dict(net, torch.Generator().manual_seed(0))
+            gain = ST_CONV_GAIN.get(name, 1.0)
+            for k, t in sd.items():
+                if k.endswith("conv2_offset.weight"):
+                    sd[k] = t * ST_OFFSET_GAIN
+                elif k.endswith(".weight") and t.dim() == 4:
+                    sd[k] = t * gain
+            ckpt = os.path.join(tmp, f"{name}.pth")
+            torch.save(sd, ckpt)
+            folder = f"keypoints_{name}"
+            timer, wall = run_cli([
+                "--data_folder", cfg_ws, "--keyp_folder", folder,
+                "--pose_cfg", cfg_path, "--pose_ckpt", ckpt, "--yolox_ckpt",
+                yolox_ckpt, "--device", dev.type], f"cfg_{name}")
+            for fr in range(ST_CFG_FRAMES):
+                for v in range(6):
+                    read_keypoints_json(os.path.join(
+                        cfg_ws, folder, "0000", f"Camera0{v}",
+                        f"{fr:06d}_keypoints.json"), joints)
+            # view 0's heatmaps, the card against the CPU
+            ih, iw = est["input_hw"]
+            c, s = bbox_to_center_scale(boxes0[:, :4], iw / ih)
+            crops = crop_affine(image0, torch.as_tensor(c, device=dev),
+                                torch.as_tensor(s, device=dev), (ih, iw))
+            pose = {d: TP.PoseEstimator(sd, num_joints=joints,
+                                        input_hw=(ih, iw),
+                                        model=pose_model_from_config(
+                                            cfg_path), device=d)
+                    for d in (dev, "cpu")}
+            hm_dev = pose[dev].heatmaps(crops)
+            t0 = time.perf_counter()
+            hm_cpu = pose["cpu"].heatmaps(crops.cpu())
+            cpu_s = time.perf_counter() - t0
+            err = (hm_dev.cpu() - hm_cpu).abs().max().item()
+            assert err <= 1e-4, f"{name}: heatmaps card vs CPU {err:.3e}"
+            extra = {}
+            if spec[1].get("stage_with_dcn"):
+                mean, big, outside = _offset_stats(
+                    pose[dev].model, normalize_crops(crops))
+                assert outside > 0.0, "no deformable tap left the image"
+                extra = dict(offset_abs_mean=f"{mean:.3f}",
+                             offset_abs_max=f"{big:.3f}",
+                             taps_outside=f"{outside:.4f}")
+            flops = conv_flops(net.to("meta"),
+                               torch.zeros(1, 3, ih, iw, device="meta"))
+            people_n = sum(len(read_keypoints_json(os.path.join(
+                cfg_ws, folder, "0000", f"Camera0{v}",
+                f"{fr:06d}_keypoints.json"), joints))
+                for fr in range(ST_CFG_FRAMES) for v in range(6))
+            pose_dev = timer.device_totals().get("pose", 0.0)
+            log("stream", part="pose_cfg", config=name, zoo=spec[0],
+                input=f"{ih}x{iw}", joints=joints, frames=ST_CFG_FRAMES,
+                views=6, wall_s=f"{wall:.3f}", crops=people_n,
+                pose_dev_s_per_frame=f"{pose_dev / ST_CFG_FRAMES:.4f}",
+                gflop_per_crop=f"{flops / 1e9:.3f}",
+                share_of_fp32_peak=f"{flops * people_n / max(pose_dev, 1e-9) / PEAK_FP32_FLOPS:.4f}",
+                heatmap_max_abs_err=f"{err:.3e}", check_crops=len(boxes0),
+                cpu_check_s=f"{cpu_s:.2f}", **extra, card=card)
+
+        # ---- (d) --video --smpl: HybrIK at 256x256 --------------------------
+        smpl_net = Simple3DPoseSMPLCam(width_dim=64, height_dim=64)
+        smpl_sd = random_state_dict(smpl_net, torch.Generator().manual_seed(0))
+        smpl_ckpt = os.path.join(tmp, "hybrik.pth")
+        torch.save(smpl_sd, smpl_ckpt)
+        clip4 = os.path.join(tmp, "clip4.avi")
+        _mux(clip4, raw[:ST_SMPL_FRAMES], w, h)
+        smpl_ws = os.path.join(tmp, "smpl_ws")
+        smpl_video = os.path.join(tmp, "smpl.avi")
+        timer, wall = run_cli([
+            "--video", clip4, "--smpl", "--smpl_ckpt", smpl_ckpt,
+            "--out_video", smpl_video, "--data_folder", smpl_ws,
+            "--yolox_ckpt", yolox_ckpt, "--device", dev.type], "smpl")
+        with open(os.path.join(smpl_ws, "smpl-results.json")) as f:
+            smpl_res = json.load(f)
+        assert [r["imgname"] for r in smpl_res] == [
+            f"{i:06d}.jpg" for i in range(ST_SMPL_FRAMES)]
+        keys = {"keypoints", "pred_xyz_jts", "kp_score", "proposal_score",
+                "bbox_score", "idx", "box", "crop_box"}
+        persons = [p for r in smpl_res for p in r["result"]]
+        assert persons and all(set(p) == keys for p in persons)
+        assert all(np.isfinite(np.asarray(p["keypoints"])).all()
+                   and np.asarray(p["pred_xyz_jts"]).shape == (24, 3)
+                   for p in persons)
+        assert len(list(V.read_video(smpl_video))) == ST_SMPL_FRAMES
+        dev_s = timer.device_totals()
+        # The crops of view 0 on the card against the CPU.
+        est = {d: TP.SmplPoseEstimator(smpl_sd, device=d)
+               for d in (dev, "cpu")}
+        c, s = bbox_to_center_scale(boxes0[:, :4], 1.0)
+        crops = crop_affine(image0, torch.as_tensor(c, device=dev),
+                            torch.as_tensor(s, device=dev), (256, 256))
+        out_dev = est[dev].regress(crops)
+        out_cpu = est["cpu"].regress(crops.cpu())
+        errs = {}
+        for k in ("pred_uvd_jts", "pred_shape", "pred_phi", "pred_camera",
+                  "maxvals"):
+            torch.testing.assert_close(out_dev[k].cpu(), out_cpu[k],
+                                       atol=2e-4, rtol=1e-3, msg=k)
+            errs[k] = (out_dev[k].cpu() - out_cpu[k]).abs().max().item()
+        # The IK on the same inputs on both: cuSOLVER's batched 3x3 SVD
+        # (the root's Kabsch) against LAPACK's, and the meshes.
+        same = {k: v.cpu() for k, v in out_dev.items()}
+        verts_dev, _ = est[dev].bodies(out_dev)
+        verts_cpu, _ = est["cpu"].bodies(same)
+        assert torch.isfinite(verts_dev).all(), "non-finite mesh"
+        cos = []
+        xyz, _ = uvd_to_xyz(same["pred_uvd_jts"], same["pred_camera"],
+                            1000.0, 256.0, 2.0)
+        phis = same["pred_phi"] / same["pred_phi"].norm(
+            dim=-1, keepdim=True).clamp_min(1e-8)
+        rots_cpu = HM.hybrik_ik(est["cpu"].assets, xyz * 2.0,
+                                same["pred_shape"], phis, swing_cos=cos)
+        rots_dev = HM.hybrik_ik(est[dev].assets, (xyz * 2.0).to(dev),
+                                same["pred_shape"].to(dev), phis.to(dev))
+        # A swing whose bones are within ~0.8 degrees of antiparallel
+        # (1 + cos < 1e-4) turns about an ill-conditioned axis.
+        worst_cos = torch.stack(cos, 1).amin(1)          # (people,)
+        swung = worst_cos < -0.9999
+        root_err = (rots_dev[:, 0].cpu() - rots_cpu[:, 0]).abs().amax(
+            (1, 2))
+        vert_err = (verts_dev.cpu() - verts_cpu).abs().amax((1, 2))
+        calm = ~swung
+        assert (root_err <= 1e-5).all(), root_err
+        assert (vert_err[calm] <= HYBRIK_VERT_ATOL).all(), vert_err
+        log("stream", part="smpl", frames=ST_SMPL_FRAMES, input="256x256",
+            wall_s=f"{wall:.3f}", fps=f"{ST_SMPL_FRAMES / wall:.3f}",
+            people=len(persons), video_frames=ST_SMPL_FRAMES,
+            net_dev_s_per_frame=f"{dev_s.get('smpl_net', 0.0) / ST_SMPL_FRAMES:.4f}",
+            ik_s_each_frame=",".join(f"{v:.4f}"
+                                     for v in timer.timings.get("ik", [])),
+            ik_dev_s_per_frame=f"{dev_s.get('ik', 0.0) / ST_SMPL_FRAMES:.4f}",
+            per_frame_s=per_frame(timer, ST_SMPL_FRAMES, (
+                "demux", "decode", "letterbox", "detector", "nms", "crop",
+                "smpl_net", "ik", "smpl_host", "draw", "encode", "results")),
+            check_crops=len(boxes0),
+            **{f"{k}_max_abs_err": f"{v:.3e}" for k, v in errs.items()},
+            root_rotation_max_abs_err=f"{root_err.max().item():.3e}",
+            verts_max_abs_err_m=f"{vert_err[calm].max().item():.3e}"
+            if calm.any() else "none",
+            verts_atol_m=HYBRIK_VERT_ATOL,
+            worst_swing_cos=f"{worst_cos.min().item():.6f}",
+            near_antiparallel_people=int(swung.sum()),
+            near_antiparallel_verts_max_abs_err_m=f"{vert_err[swung].max().item():.3e}"
+            if swung.any() else "none",
+            launches_b1_b4=0, card=card)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2439,8 +2947,10 @@ def main() -> int:
     family_phase(dev, path, "smplh", B_SMPLH, dict(hand_dim=6), 30, 6.0)
     schur_phase(dev, path)
     cli_phase(dev, path)
-    keypoints_phase(dev, path)
+    kp_weights = keypoint_weights(dev)
+    keypoints_phase(dev, path, kp_weights)
     overlay_phase(dev, path)
+    stream_phase(dev, path, kp_weights)
     # Every kernel's launches summed over the fit paths.
     for name in kernels:
         kernels[name]["launches"] = sum(p.get(name, 0) for p in path.values())

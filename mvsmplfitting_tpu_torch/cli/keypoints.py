@@ -9,12 +9,26 @@ the OpenPose format that `mvsmplfitting_tpu_torch.cli.main` reads:
     python -m mvsmplfitting_tpu_torch.cli.keypoints --data_folder <dir> \
         [--yolox_ckpt x.pth.tar] [--pose_ckpt y.pth] [--device cuda|cpu]
 
+The other modes, as JAX's flow (`cli/keypoints.py:83-174`):
+
+* ``--video <clip.avi | folder> [--out_video v.avi] [--results_dir d
+  --results_form cmu|open --for_eval] [--max_frames N]``: the streaming
+  mode (`detect/stream.py:run_stream`), one JSON per frame under
+  `<data_folder>/keypoints/stream/` (`./keypoints/stream/` without
+  `--data_folder`);
+* ``--video ... --smpl [--smpl_ckpt h.pth]``: HybrIK's SMPL regression
+  (`run_stream_smpl`), `<data_folder or .>/smpl-results.json` and a mesh
+  overlay video;
+* ``--pose_cfg <AlphaPose YAML>``: the pose net, its crop size, joint
+  count and flip pairs from the reference's config file, read once;
+  ``--pose_model hrnet|hardnet|...`` picks a zoo net by name.
+
 The nets run on `--device` (CUDA unless ``--device cpu``; no fall back
 to the CPU).  Without checkpoints they run on weights made from seed 0
-(pipeline smoke tests only: the detections mean nothing).  Video input
-(`--video`), SMPL regression (`--smpl`) and AlphaPose config files
-(`--pose_cfg`) are not ported yet (ROADMAP queue A item 11b): the CLI
-stops on them before it loads anything.
+(pipeline smoke tests only: the detections mean nothing).  Checkpoints
+load in the reference's names.  A webcam index, a video other than
+Motion-JPEG AVI, `--smpl` without `--video` and a config the zoo cannot
+build are refused before any net is built.
 """
 
 from __future__ import annotations
@@ -30,22 +44,25 @@ from ..utils.profiling import StageTimer
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
-        description="Images to OpenPose keypoint JSONs on one GPU "
+        description="Images or video to keypoint JSONs on one GPU "
                     "(PyTorch/CUDA)")
     p.add_argument("--data_folder", default=None,
                    help="holds images/<serial>/<cam> (offline mode)")
     p.add_argument("--video", default=None,
-                   help="streaming input (not ported yet)")
+                   help="streaming mode: a Motion-JPEG AVI or a folder of "
+                        "images (detect/stream.py)")
     p.add_argument("--out_video", default=None,
-                   help="streaming mode only")
+                   help="streaming mode: the drawn video (Motion-JPEG AVI "
+                        "at the .avi name)")
     p.add_argument("--results_dir", default=None,
-                   help="streaming mode only")
+                   help="streaming mode: also write the aggregated "
+                        "alphapose-results.json here")
     p.add_argument("--results_form", default=None, choices=["cmu", "open"],
-                   help="streaming mode only")
+                   help="aggregated results format (default: the "
+                        "alphapose-results.json list)")
     p.add_argument("--for_eval", action="store_true",
-                   help="streaming mode only")
-    p.add_argument("--max_frames", type=int, default=0,
-                   help="streaming mode only")
+                   help="numeric COCO image ids in the results file")
+    p.add_argument("--max_frames", type=int, default=0)
     p.add_argument("--img_folder", default="images")
     p.add_argument("--keyp_folder", default="keypoints")
     p.add_argument("--yolox_ckpt", default=None,
@@ -58,7 +75,9 @@ def parse_args(argv=None):
     p.add_argument("--pose_model", default="fastpose",
                    help="pose zoo net (detect/zoo.py)")
     p.add_argument("--pose_cfg", default=None,
-                   help="AlphaPose model-config YAML (not ported yet)")
+                   help="AlphaPose model-config YAML (the reference's "
+                        "configs/**/*.yaml, read by detect/config.py); "
+                        "overrides --pose_model/--num_joints")
     p.add_argument("--num_joints", type=int, default=26)
     p.add_argument("--flip_test", action="store_true",
                    help="mirrored-batch heatmap ensembling")
@@ -70,30 +89,17 @@ def parse_args(argv=None):
     p.add_argument("--pose_nms", action="store_true",
                    help="parametric pose NMS for crowded scenes")
     p.add_argument("--bf16", action="store_true",
-                   help="run both nets in bfloat16")
+                   help="run the nets in bfloat16 (HybrIK's IK stays fp32)")
     p.add_argument("--smpl", action="store_true",
-                   help="direct SMPL regression (not ported yet)")
+                   help="streaming mode: direct SMPL regression (HybrIK) "
+                        "with a mesh-overlay video and smpl-results.json "
+                        "(the reference's writer_smpl.py)")
     p.add_argument("--smpl_ckpt", default=None,
-                   help="HybrIK checkpoint (not ported yet)")
+                   help="HybrIK checkpoint (weights from seed 0 if absent)")
     p.add_argument("--device", default="cuda",
                    help="torch device of the nets (default cuda; 'cpu' "
                         "runs them on the CPU)")
     return p.parse_args(argv)
-
-
-def _refuse_unported(args) -> None:
-    pending = [("--video", args.video is not None,
-                "video input needs video decoding without cv2 "
-                "(detect/stream.py)"),
-               ("--smpl", args.smpl or args.smpl_ckpt is not None,
-                "SMPL regression needs HybrIK (detect/hybrik.py)"),
-               ("--pose_cfg", args.pose_cfg is not None,
-                "AlphaPose config files need the nested-YAML reader "
-                "(detect/config.py)")]
-    for flag, given, why in pending:
-        if given:
-            raise NotImplementedError(
-                f"{flag}: not ported yet (ROADMAP queue A item 11b): {why}")
 
 
 def frames_of(img_root: str):
@@ -118,35 +124,82 @@ def frames_of(img_root: str):
 def main(argv=None, timer: Optional[StageTimer] = None,
          stats: Optional[List[Dict]] = None) -> int:
     """Run the CLI; `timer` collects each stage's seconds (see
-    `detect/predictor.py`) and `stats` one record per view (candidate
-    and kept boxes, NMS seconds, people written) when given."""
+    `detect/predictor.py`, `detect/stream.py`) and `stats` one record per
+    view (candidate and kept boxes, NMS seconds, people written) in the
+    offline mode, when given.  The video source, the pose config and the
+    mode's flags are checked before any net is built."""
     args = parse_args(argv)
-    _refuse_unported(args)
-    if args.data_folder is None:
-        raise SystemExit("--data_folder is required")
+    timer = StageTimer() if timer is None else timer
+    if args.video is None and (args.smpl or args.smpl_ckpt):
+        raise SystemExit("--smpl/--smpl_ckpt need --video (streaming mode)")
+    if args.video is None and args.data_folder is None:
+        raise SystemExit("--data_folder or --video is required")
 
     from ..detect.predictor import (KeypointPipeline, PersonDetector,
                                     PoseEstimator)
     from ..detect.preprocess import flip_pairs_for
     from ..detect.weights import load_checkpoint
-    from ..detect.zoo import build_pose_model
     from ..device import resolve_device
+
+    source = None
+    if args.video is not None:
+        from ..detect.stream import check_source, parse_source
+        source = parse_source(args.video)
+        check_source(source)
+    est_kw = None             # the pose net's arguments (not for --smpl)
+    if args.pose_cfg and not args.smpl:
+        # Parsed once: the estimator's arguments and the net both come
+        # from this one read.
+        from ..detect.config import estimator_kwargs_from_config
+        est_kw = estimator_kwargs_from_config(args.pose_cfg)
+    elif not args.smpl:
+        from ..detect.zoo import build_pose_model
+        est_kw = {"num_joints": args.num_joints,
+                  "model": build_pose_model(args.pose_model,
+                                            args.num_joints)}
 
     device = resolve_device(args.device)
     det_sd = load_checkpoint(args.yolox_ckpt) if args.yolox_ckpt else None
     detector = PersonDetector(det_sd, conf_thresh=args.det_thresh,
                               bf16=args.bf16, device=device)
-    model = build_pose_model(args.pose_model, args.num_joints)
-    pose_sd = load_checkpoint(args.pose_ckpt) if args.pose_ckpt else None
-    est_kw = {}
-    if args.format:
-        est_kw["joint_pairs"] = flip_pairs_for(args.num_joints, args.format)
-    pose = PoseEstimator(pose_sd, num_joints=args.num_joints,
-                         flip_test=args.flip_test,
-                         use_pose_nms=args.pose_nms, bf16=args.bf16,
-                         model=model, device=device, **est_kw)
-    pipeline = KeypointPipeline(detector, pose, timer=timer)
 
+    if args.smpl:
+        from ..detect.predictor import SmplPoseEstimator
+        from ..detect.stream import run_stream_smpl
+        smpl_sd = load_checkpoint(args.smpl_ckpt) if args.smpl_ckpt else None
+        out_dir = args.data_folder or "."
+        start = time.time()
+        n = run_stream_smpl(
+            source, detector,
+            SmplPoseEstimator(smpl_sd, bf16=args.bf16, device=device),
+            out_json=os.path.join(out_dir, "smpl-results.json"),
+            out_video=args.out_video, max_frames=args.max_frames,
+            timer=timer)
+        print(f"Processed {n} frame(s) in {time.time() - start:.2f}s")
+        return 0
+
+    pose_sd = load_checkpoint(args.pose_ckpt) if args.pose_ckpt else None
+    if args.format:
+        est_kw["joint_pairs"] = flip_pairs_for(est_kw["num_joints"],
+                                               args.format)
+    pose = PoseEstimator(pose_sd, flip_test=args.flip_test,
+                         use_pose_nms=args.pose_nms, bf16=args.bf16,
+                         device=device, **est_kw)
+
+    if source is not None:
+        from ..detect.stream import run_stream
+        out_dir = (os.path.join(args.data_folder, args.keyp_folder)
+                   if args.data_folder else "keypoints")
+        start = time.time()
+        n = run_stream(source, detector, pose, out_json_dir=out_dir,
+                       out_video=args.out_video, max_frames=args.max_frames,
+                       results_dir=args.results_dir,
+                       results_form=args.results_form,
+                       for_eval=args.for_eval, timer=timer)
+        print(f"Processed {n} frame(s) in {time.time() - start:.2f}s")
+        return 0
+
+    pipeline = KeypointPipeline(detector, pose, timer=timer)
     img_root = os.path.join(args.data_folder, args.img_folder)
     keyp_root = os.path.join(args.data_folder, args.keyp_folder)
     start = time.time()

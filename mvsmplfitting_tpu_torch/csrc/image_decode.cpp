@@ -6,7 +6,9 @@
 // and in the same integer arithmetic, so that the output is the same
 // bytes:
 //   * Huffman decoding of sequential scans (interleaved or not), with
-//     restart intervals;
+//     restart intervals; a scan without a DHT segment takes the standard
+//     tables of Annex K.3 (`jpeg_std_tables.h`), as libjpeg does for the
+//     Motion-JPEG frames that leave them out;
 //   * dequantization and the "islow" integer inverse DCT
 //     (jidctint.c: 13-bit constants, 2 extra bits in the first pass,
 //     the masked range-limit table);
@@ -27,6 +29,8 @@
 #include <cstring>
 #include <string>
 #include <vector>
+
+#include "jpeg_std_tables.h"
 
 namespace {
 
@@ -470,8 +474,24 @@ struct Jpeg {
     for (int ci : members) {
       Component& c = comps[ci];
       if (!qt_present[c.tq]) fail("missing quantization table");
-      if (!dc[c.td].present || !ac[c.ta].present)
-        fail("missing Huffman table");
+      // A scan whose table was never defined (Motion-JPEG frames leave
+      // out DHT) takes the standard table of its index, as libjpeg's
+      // jpeg_make_d_derived_tbl does through jpeg_std_huff_table; there
+      // are standard tables for indices 0 and 1 only.
+      if (!dc[c.td].present) {
+        if (c.td > 1) fail("missing Huffman table");
+        dc[c.td].build(c.td ? jpeg_std::kDcChromBits + 1
+                            : jpeg_std::kDcLumBits + 1,
+                       c.td ? jpeg_std::kDcChromVals : jpeg_std::kDcLumVals,
+                       12);
+      }
+      if (!ac[c.ta].present) {
+        if (c.ta > 1) fail("missing Huffman table");
+        ac[c.ta].build(c.ta ? jpeg_std::kAcChromBits + 1
+                            : jpeg_std::kAcLumBits + 1,
+                       c.ta ? jpeg_std::kAcChromVals : jpeg_std::kAcLumVals,
+                       162);
+      }
       c.pred = 0;
     }
     BitReader br(d, n, p);

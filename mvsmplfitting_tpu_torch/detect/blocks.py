@@ -155,28 +155,38 @@ class SELayer(nn.Module):
         return x * y[:, :, None, None]
 
 
-def refuse_dcn(stage_with_dcn: Sequence[bool]) -> None:
-    if any(stage_with_dcn):
-        raise NotImplementedError(
-            "stage_with_dcn: deformable-convolution backbones "
-            "(detect/deform_conv.py) are not ported yet (ROADMAP queue A "
-            "item 11b)")
-
-
 class ResBottleneck(nn.Module):
     """ResNet-50 bottleneck with optional SE (`SE_Resnet.py:59-141`);
     `shuffle=True` is the ShuffleResnet variant, whose strided conv2 is
-    PixelUnshuffle(stride) + a stride-1 conv (`ShuffleResnet.py:60-123`)."""
+    PixelUnshuffle(stride) + a stride-1 conv (`ShuffleResnet.py:60-123`).
+    `dcn=True` makes conv2 deformable (`SE_Resnet.py:72-101,117-127`): a
+    3x3 conv `conv2_offset` (with bias) predicts the offsets, and for
+    DCNv2 (`dcn_modulated`) the mask as the sigmoid of its last 9*dg
+    channels, and `conv2` (a `DeformConv2d`, no bias) samples and
+    contracts."""
 
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: bool = False, se: bool = False,
-                 shuffle: bool = False):
+                 shuffle: bool = False, dcn: bool = False,
+                 dcn_modulated: bool = False, deformable_groups: int = 1):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
         self.bn1 = nn.BatchNorm2d(planes, eps=BN_EPS)
-        if shuffle and stride > 1:
+        self.dcn = dcn
+        self.dcn_modulated = dcn_modulated
+        self.deformable_groups = deformable_groups
+        if dcn:
+            if shuffle:
+                raise ValueError("a deformable conv2 in a ShuffleResnet "
+                                 "block is not supported")
+            from .deform_conv import DeformConv2d
+            offc = deformable_groups * (27 if dcn_modulated else 18)
+            self.conv2_offset = nn.Conv2d(planes, offc, 3, stride, 1)
+            self.conv2 = DeformConv2d(planes, planes, 3, stride, 1,
+                                      deformable_groups)
+        elif shuffle and stride > 1:
             self.conv2 = nn.Sequential(
                 PixelUnshuffle(stride),
                 nn.Conv2d(planes * stride * stride, planes, 3, 1, 1,
@@ -193,7 +203,17 @@ class ResBottleneck(nn.Module):
 
     def forward(self, x):
         out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
+        if self.dcn:
+            om = self.conv2_offset(out)
+            dg = self.deformable_groups
+            if self.dcn_modulated:
+                out = self.conv2(out, om[:, :18 * dg],
+                                 torch.sigmoid(om[:, -9 * dg:]))
+            else:
+                out = self.conv2(out, om)
+        else:
+            out = self.conv2(out)
+        out = F.relu(self.bn2(out))
         out = self.bn3(self.conv3(out))
         if self.se is not None:
             out = self.se(out)
@@ -204,10 +224,14 @@ class ResBottleneck(nn.Module):
 class ResNetBackbone(nn.Module):
     """The bottleneck ResNet of the pose nets (`SE_Resnet.py`,
     `Resnet.py`, `ShuffleResnet.py`): a 7x7 stem, max pool and four
-    stages; `se` puts squeeze-excite on each stage's first block."""
+    stages; `se` puts squeeze-excite on each stage's first block, and
+    `stage_with_dcn` makes every conv2 of a stage deformable
+    (`SE_Resnet.py:147,171`)."""
 
     def __init__(self, depths: Sequence[int] = (3, 4, 6, 3),
-                 se: bool = False, shuffle: bool = False):
+                 se: bool = False, shuffle: bool = False,
+                 stage_with_dcn: Sequence[bool] = (False,) * 4,
+                 dcn_modulated: bool = False, deformable_groups: int = 1):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = nn.BatchNorm2d(64, eps=BN_EPS)
@@ -219,7 +243,9 @@ class ResNetBackbone(nn.Module):
             for b in range(blocks):
                 layers.append(ResBottleneck(
                     inplanes, planes, stride if b == 0 else 1,
-                    downsample=b == 0, se=se and b == 0, shuffle=shuffle))
+                    downsample=b == 0, se=se and b == 0, shuffle=shuffle,
+                    dcn=bool(stage_with_dcn[s]), dcn_modulated=dcn_modulated,
+                    deformable_groups=deformable_groups))
                 inplanes = planes * 4
             setattr(self, f"layer{s + 1}", nn.Sequential(*layers))
 

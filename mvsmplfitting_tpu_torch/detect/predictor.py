@@ -1,5 +1,6 @@
 """The keypoint front end: camera images -> per-person 2D keypoints
-(port of `detect/predictor.py:52-151, 292-316`).
+(port of `detect/predictor.py:52-316`), and HybrIK's SMPL regression
+(`SmplPoseEstimator`).
 
 Per frame, every camera's image is decoded on the host
 (`data/images.py`, one thread a view) and copied to the device,
@@ -186,6 +187,126 @@ class PoseEstimator:
                     coords, conf)
         return np.concatenate([coords, conf[..., None]],
                               axis=-1).astype(np.float32)
+
+
+class SmplPoseEstimator:
+    """HybrIK direct SMPL regression from person crops (port of JAX's
+    `detect/predictor.py:164-290`; the reference's `writer_smpl.py` with
+    `simple3dposeSMPLWithCam.py`): each box is cropped (256x256 by
+    default), `Simple3DPoseSMPLCam` regresses a 29-joint uvd skeleton,
+    shape, twists and a weak-perspective camera, and the twist-and-swing
+    IK (`models/hybrik.py`) poses the SMPL body.  All of a frame's people
+    run as one batch (chunks of `batch`); the IK and skinning run batched
+    on the device in float32 (`bf16=True` runs only the net in
+    bfloat16).  Stages: "crop", "smpl_net" and "ik" (also by CUDA
+    events), "smpl_host" (the copies and the writer's arithmetic)."""
+
+    def __init__(self, state_dict: Optional[Mapping] = None, assets=None,
+                 input_hw: Tuple[int, int] = (256, 256), seed: int = 0,
+                 batch: int = 16, focal_length: float = 1000.0,
+                 depth_factor: float = 2.0, bf16: bool = False,
+                 device: DeviceLike = None):
+        from ..models.assets import synthetic_smpl
+        from .hybrik import Simple3DPoseSMPLCam
+        self.device = resolve_device(device)
+        ih, iw = input_hw
+        self.input_hw = tuple(input_hw)
+        self.batch = batch
+        self.focal_length = focal_length
+        self.depth_factor = depth_factor
+        self.dtype = torch.bfloat16 if bf16 else torch.float32
+        self.model = prepare(Simple3DPoseSMPLCam(
+            width_dim=iw // 4, height_dim=ih // 4,
+            focal_length=focal_length, input_size=float(ih),
+            depth_factor=depth_factor), state_dict, seed, self.device, bf16)
+        # The SMPL pickle is licence-gated: the synthetic body keeps the
+        # shapes (pass `load_smpl(...)` assets for human meshes).
+        self.assets = (assets if assets is not None
+                       else synthetic_smpl(device=self.device))
+        self.faces = self.assets.faces.cpu().numpy()
+
+    @torch.inference_mode()
+    def regress(self, crops: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """[0, 1] RGB crops (M, 3, h, w) -> the net's outputs in float32,
+        in chunks of `batch`."""
+        outs = [self.model(normalize_crops(crops[i:i + self.batch]).to(
+            self.dtype)) for i in range(0, crops.shape[0], self.batch)]
+        return {k: torch.cat([o[k] for o in outs]).float() for k in outs[0]}
+
+    @torch.inference_mode()
+    def bodies(self, out: Dict[str, torch.Tensor]):
+        """The net's outputs -> (camera-frame vertices (M, V, 3),
+        root-relative xyz (M, 29, 3) in depth_factor units)."""
+        from ..models.hybrik import forward_rotmats, hybrik_ik
+        from .hybrik import uvd_to_xyz
+        xyz, root = uvd_to_xyz(out["pred_uvd_jts"], out["pred_camera"],
+                               self.focal_length, float(self.input_hw[0]),
+                               self.depth_factor)
+        phis = out["pred_phi"]
+        # The twists' (cos, sin) are normalized first
+        # (`simple3dposeSMPLWithCam.py`'s HybrIK layer).
+        phis = phis / torch.clamp_min(
+            torch.linalg.vector_norm(phis, dim=-1, keepdim=True), 1e-8)
+        betas = out["pred_shape"]
+        rots = hybrik_ik(self.assets, xyz * self.depth_factor, betas, phis)
+        verts, _ = forward_rotmats(self.assets, betas, rots)
+        return verts + root[:, None, :], xyz
+
+    def estimate(self, img_rgb01: torch.Tensor, boxes_xyxy: np.ndarray,
+                 timer: Optional[StageTimer] = None) -> Dict[str, np.ndarray]:
+        """Image ((3, H, W) [0, 1] RGB on the device) + boxes (M, >=4) ->
+        per person: ``keypoints`` (M, 29, 2) image uv with the
+        reference's width-only crop scaling of both axes
+        (`writer_smpl.py:108-114`), ``kp_score`` (M, 29, 1) = 1 -
+        maxvals (`:116`), ``pred_xyz_jts`` (M, 24, 3) root-relative
+        joints in depth_factor units (the writer's `pred_xyz_jts_24`),
+        ``verts`` (M, V, 3) camera-frame meshes, ``proposal_score`` (M,)
+        = mean(kp) + box + 1.25 max(kp) (`:131`), and the crops'
+        ``centers`` / ``scales``."""
+        timer = StageTimer() if timer is None else timer
+        J = self.model.num_joints
+        if len(boxes_xyxy) == 0:
+            z = np.zeros
+            return {"keypoints": z((0, J, 2), np.float32),
+                    "kp_score": z((0, J, 1), np.float32),
+                    "pred_xyz_jts": z((0, 24, 3), np.float32),
+                    "verts": z((0, self.assets.num_verts, 3), np.float32),
+                    "proposal_score": z((0,), np.float32),
+                    "centers": z((0, 2), np.float32),
+                    "scales": z((0, 2), np.float32)}
+        ih, iw = self.input_hw
+        with timer.time("crop") as box:
+            centers, scales = bbox_to_center_scale(boxes_xyxy[:, :4],
+                                                   aspect_ratio=iw / ih)
+            crops = crop_affine(img_rgb01,
+                                torch.as_tensor(centers, device=self.device),
+                                torch.as_tensor(scales, device=self.device),
+                                self.input_hw)
+            box["sync"] = crops
+        with timer.time("smpl_net") as box, \
+                timer.device("smpl_net", self.device):
+            out = self.regress(crops)
+            box["sync"] = out["pred_uvd_jts"]
+        with timer.time("ik") as box, timer.device("ik", self.device):
+            verts, xyz = self.bodies(out)
+            box["sync"] = verts
+        with timer.time("smpl_host"):
+            uvd = out["pred_uvd_jts"].cpu().numpy()
+            kp_score = 1.0 - out["maxvals"].cpu().numpy()
+            uv_img = uvd[:, :, :2] * scales[:, None, 0:1] + centers[:, None, :]
+            box_score = (boxes_xyxy[:, 4] if boxes_xyxy.shape[1] > 4
+                         else np.ones(len(boxes_xyxy), np.float32))
+            proposal = (kp_score.mean((1, 2)) + box_score
+                        + 1.25 * kp_score.max((1, 2)))
+            result = {"keypoints": uv_img.astype(np.float32),
+                      "kp_score": kp_score.astype(np.float32),
+                      "pred_xyz_jts": xyz[:, :24].cpu().numpy().astype(
+                          np.float32),
+                      "verts": verts.cpu().numpy().astype(np.float32),
+                      "proposal_score": proposal.astype(np.float32),
+                      "centers": centers.astype(np.float32),
+                      "scales": scales.astype(np.float32)}
+        return result
 
 
 def rgb01(img: torch.Tensor) -> torch.Tensor:

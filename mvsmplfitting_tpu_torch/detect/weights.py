@@ -4,14 +4,15 @@ seeded random weights.
 The port's modules are named as the reference's torch modules, so a
 reference checkpoint (`bytetrack_x_mot17.pth.tar` for YOLOX,
 `fast_res50_256x192.pth` for FastPose) loads with `load_state_dict`
-once `load_checkpoint` has unwrapped it.  `yolox_state_from_flax` and
-`pose_state_from_flax` invert JAX's converters (`detect/convert.py:
-74-195, 329-445`): they turn a flax `{"params", "batch_stats"}` tree of
-arrays back into the reference's `state_dict`, so weights held by the
-JAX package carry across.  Conv kernels go (kH, kW, I, O) -> (O, I, kH,
-kW), dense kernels are transposed, transposed-conv kernels flipped
-back, BatchNorm scale/bias/mean/var become weight/bias/running_mean/
-running_var (with `num_batches_tracked` 0).
+once `load_checkpoint` has unwrapped it.  `yolox_state_from_flax`,
+`pose_state_from_flax` and `hybrik_state_from_flax` invert JAX's
+converters (`detect/convert.py:74-468`): they turn a flax `{"params",
+"batch_stats"}` tree of arrays back into the reference's `state_dict`,
+so weights held by the JAX package carry across.  Conv kernels go (kH,
+kW, I, O) -> (O, I, kH, kW), dense kernels are transposed,
+transposed-conv kernels flipped back, BatchNorm scale/bias/mean/var
+become weight/bias/running_mean/running_var (with `num_batches_tracked`
+0).
 """
 
 from __future__ import annotations
@@ -137,30 +138,63 @@ class _Inverse:
                 self.convbn(path + (f"m{i}", c), f"{key}.m.{i}.{c}")
             i += 1
 
+    def bottleneck(self, path, src: str, conv2: str) -> None:
+        """One ResNet bottleneck: conv1/bn1, conv2 (at `conv2`; JAX's
+        deformable `conv2` block as `conv2_offset` + `conv2.weight`),
+        bn2, conv3/bn3, SE and downsample where present."""
+        self.convbn_numbered(path + ("conv1",), src, "1")
+        if self.has(path + ("conv2", "kernel")):
+            self.conv(path + ("conv2", "conv2_offset"),
+                      f"{src}.conv2_offset", bias=True)
+            self.conv(path + ("conv2",), f"{src}.conv2")
+            self.bn(path + ("bn2",), f"{src}.bn2")
+        else:
+            self.conv(path + ("conv2", "conv"), conv2)
+            self.bn(path + ("conv2", "bn"), f"{src}.bn2")
+        self.conv(path + ("conv3",), f"{src}.conv3")
+        self.bn(path + ("bn3",), f"{src}.bn3")
+        if self.has(path + ("se",)):
+            self.dense(path + ("se", "fc1"), f"{src}.se.fc.0")
+            self.dense(path + ("se", "fc2"), f"{src}.se.fc.2")
+        if self.has(path + ("down_conv",)):
+            self.conv(path + ("down_conv",), f"{src}.downsample.0")
+            self.bn(path + ("down_bn",), f"{src}.downsample.1")
+
     def resnet(self, root: str, key: str, shuffle: bool = False) -> None:
         """Inverse of `_resnet_backbone` / the FastPose backbone: stages
-        and blocks as the tree holds them, SE and downsample where
-        present, ShuffleResnet's strided conv2 as `conv2.1`."""
+        and blocks as the tree holds them, SE, downsample and deformable
+        conv2s where present, ShuffleResnet's strided conv2 as
+        `conv2.1`."""
         self.convbn_numbered((root, "stem"), key, "1")
         for s in range(4):
             b = 0
             while self.has((root, f"layer{s + 1}_{b}")):
-                path = (root, f"layer{s + 1}_{b}")
                 src = f"{key}.layer{s + 1}.{b}"
-                self.convbn_numbered(path + ("conv1",), src, "1")
                 c2 = (f"{src}.conv2.1" if shuffle and s > 0 and b == 0
                       else f"{src}.conv2")
-                self.conv(path + ("conv2", "conv"), c2)
-                self.bn(path + ("conv2", "bn"), f"{src}.bn2")
-                self.conv(path + ("conv3",), f"{src}.conv3")
-                self.bn(path + ("bn3",), f"{src}.bn3")
-                if self.has(path + ("se",)):
-                    self.dense(path + ("se", "fc1"), f"{src}.se.fc.0")
-                    self.dense(path + ("se", "fc2"), f"{src}.se.fc.2")
-                if self.has(path + ("down_conv",)):
-                    self.conv(path + ("down_conv",), f"{src}.downsample.0")
-                    self.bn(path + ("down_bn",), f"{src}.downsample.1")
+                self.bottleneck((root, f"layer{s + 1}_{b}"), src, c2)
                 b += 1
+
+    def hardnet_layer(self, path, key: str) -> None:
+        """A HarDNet ConvLayer {conv, norm} -> `.conv` / `.norm`."""
+        self.conv(path + ("conv",), key + ".conv")
+        self.bn(path + ("norm",), key + ".norm")
+
+    def hardnet_block(self, name: str, key: str) -> None:
+        i = 0
+        while self.has((name, f"l{i}")):
+            self.hardnet_layer((name, f"l{i}"), f"{key}.layers.{i}")
+            i += 1
+
+    def deconv_head(self) -> None:
+        """SimplePose's `deconv_layers` (ConvTranspose, BN, ReLU)s and
+        its 1x1 `final_layer`."""
+        i = 0
+        while self.has((f"deconv{i + 1}",)):
+            self.deconv((f"deconv{i + 1}",), f"deconv_layers.{3 * i}")
+            self.bn((f"bn{i + 1}",), f"deconv_layers.{3 * i + 1}")
+            i += 1
+        self.conv(("final",), "final_layer", bias=True)
 
     def duc_stage(self, path, key: str) -> None:
         """Inverse of JAX's `_duc_stage`: convs at Sequential positions
@@ -209,19 +243,85 @@ def yolox_state_from_flax(variables: Mapping, depth_mul: float = 1.33
     return t.sd
 
 
+def _hrnet_state(t: _Inverse) -> None:
+    """Inverse of JAX's `convert_hrnet_sd` (module counts read from the
+    tree)."""
+    for n in ("1", "2"):
+        t.conv((f"stem{n}", "conv"), f"conv{n}")
+        t.bn((f"stem{n}", "bn"), f"bn{n}")
+    for b in range(4):
+        t.bottleneck((f"layer1_{b}",), f"layer1.{b}", f"layer1.{b}.conv2")
+    for dst, src in (("t1_b0", "transition1.0"),
+                     ("t1_b1", "transition1.1.0"),
+                     ("t2_b2", "transition2.2.0"),
+                     ("t3_b3", "transition3.3.0")):
+        t.conv((dst, "conv"), f"{src}.0")
+        t.bn((dst, "bn"), f"{src}.1")
+    for stage, nb in ((2, 2), (3, 3), (4, 4)):
+        m = 0
+        while t.has((f"stage{stage}_m{m}",)):
+            dst, src = f"stage{stage}_m{m}", f"stage{stage}.{m}"
+            for i in range(nb):
+                for blk in range(4):
+                    p = (dst, f"branch{i}_block{blk}")
+                    s = f"{src}.branches.{i}.{blk}"
+                    t.convbn_numbered(p + ("conv1",), s, "1")
+                    t.conv(p + ("conv2",), f"{s}.conv2")
+                    t.bn(p + ("bn2",), f"{s}.bn2")
+            for i in range(nb):
+                for j in range(nb):
+                    f = f"{src}.fuse_layers.{i}.{j}"
+                    if t.has((dst, f"fuse{i}_{j}_conv")):
+                        t.conv((dst, f"fuse{i}_{j}_conv"), f"{f}.0")
+                        t.bn((dst, f"fuse{i}_{j}_bn"), f"{f}.1")
+                    k = 0
+                    while t.has((dst, f"fuse{i}_{j}_d{k}_conv")):
+                        t.conv((dst, f"fuse{i}_{j}_d{k}_conv"), f"{f}.{k}.0")
+                        t.bn((dst, f"fuse{i}_{j}_d{k}_bn"), f"{f}.{k}.1")
+                        k += 1
+            m += 1
+    t.conv(("final",), "final_layer", bias=True)
+
+
+def _hardnet_state(t: _Inverse) -> None:
+    """Inverse of JAX's `convert_hardnet_sd` (arch 68: base Sequential
+    positions 0-1 convs, 3/6/8/11 blocks, 4/7/9 projections)."""
+    t.hardnet_layer(("base0",), "base.0")
+    t.hardnet_layer(("base1",), "base.1")
+    for i, (blk, proj) in enumerate(((3, 4), (6, 7), (8, 9), (11, None))):
+        t.hardnet_block(f"blk{i}", f"base.{blk}")
+        if proj is not None:
+            t.hardnet_layer((f"proj{i}",), f"base.{proj}")
+    t.hardnet_layer(("last_proj",), "last_proj")
+    t.hardnet_block("last_blk", "last_blk")
+    for i in range(3):
+        t.hardnet_layer((f"up_proj{i}",), f"conv1x1_up.{i}")
+        t.hardnet_block(f"up_blk{i}", f"denseBlocksUp.{i}")
+    t.conv(("head0",), "conv_out.0", bias=True)
+    t.conv(("head1",), "conv_out.2", bias=True)
+
+
 def pose_state_from_flax(name: str, variables: Mapping,
                          shuffle: bool = False) -> Dict[str, np.ndarray]:
     """Inverse of JAX's pose converters (`convert_fastpose_sd`,
-    `convert_simplepose_sd`, `convert_fastpose_duc_sd`,
-    `convert_fastpose_duc_dense_sd`) for the zoo net `name`;
-    `shuffle=True` for a ShuffleResnet backbone."""
-    from .zoo import PENDING, zoo_key
+    `convert_simplepose_sd`, `convert_hrnet_sd`, `convert_hardnet_sd`,
+    `convert_fastpose_duc_sd`, `convert_fastpose_duc_dense_sd`) for the
+    zoo net `name`; `shuffle=True` for a ShuffleResnet backbone.  A
+    FastPose tree with deformable blocks (JAX's `DeformConvBlock`, which
+    `convert_fastpose_sd` does not fill) gives `conv2_offset` and the
+    deformable `conv2.weight` in the reference's names."""
+    from .zoo import zoo_key
     key = zoo_key(name)
     t = _Inverse(variables)
-    if key in PENDING:
-        raise NotImplementedError(
-            f"pose model {name!r} is not ported yet (ROADMAP queue A item "
-            "11b)")
+    if key == "hrnet":
+        _hrnet_state(t)
+        return t.sd
+    if key == "hardnet":
+        _hardnet_state(t)
+        return t.sd
+    if key not in ("fastpose", "simplepose", "fastpose_duc",
+                   "fastpose_duc_dense"):
+        raise ValueError(f"unknown pose model {name!r}")
     t.resnet("preact", "preact", shuffle=shuffle)
     if key == "fastpose":
         for duc in ("duc1", "duc2"):
@@ -229,22 +329,27 @@ def pose_state_from_flax(name: str, variables: Mapping,
             t.bn((duc, "conv", "bn"), f"{duc}.bn")
         t.conv(("conv_out",), "conv_out", bias=True)
     elif key == "simplepose":
-        i = 0
-        while t.has((f"deconv{i + 1}",)):
-            t.deconv((f"deconv{i + 1}",), f"deconv_layers.{3 * i}")
-            t.bn((f"bn{i + 1}",), f"deconv_layers.{3 * i + 1}")
-            i += 1
-        t.conv(("final",), "final_layer", bias=True)
+        t.deconv_head()
     elif key == "fastpose_duc":
         for k in range(3):
             t.duc_stage((f"duc{k + 1}",), f"duc{k + 1}")
         t.conv(("conv_out",), "conv_out", bias=True)
-    elif key == "fastpose_duc_dense":
+    else:
         for k in range(3):
             t.duc_stage((f"duc{k + 1}",), f"duc.{k}")
             t.duc_stage((f"duc_dense{k + 1}",), f"duc_dense.{k}")
         t.conv(("conv_out",), "conv_out", bias=True)
         t.conv(("conv_out_dense",), "conv_out_dense", bias=True)
-    else:
-        raise ValueError(f"unknown pose model {name!r}")
+    return t.sd
+
+
+def hybrik_state_from_flax(variables: Mapping) -> Dict[str, np.ndarray]:
+    """Inverse of JAX's `convert_hybrik_sd` (`convert.py:452-468`):
+    `Simple3DPoseSMPLCam` flax variables -> the reference's
+    `simple3dposeSMPLWithCam` state_dict (numpy)."""
+    t = _Inverse(variables)
+    t.resnet("preact", "preact")
+    t.deconv_head()
+    for name in ("fc1", "fc2", "decshape", "decphi", "deccam"):
+        t.dense((name,), name)
     return t.sd

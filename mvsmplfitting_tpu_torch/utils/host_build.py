@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cpp` compiles into its own shared library under
 `build/host/` at the repository root (listed in `.gitignore`), named by a
-hash of its source and flags, so an edited source is rebuilt.  Nothing
+hash of its source, the `csrc/` headers it includes and its flags, so an
+edited source or header is rebuilt.  Nothing
 builds at import time: the first call that needs a library builds and
 loads it, and a failed build raises with the compiler's output.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -21,6 +23,7 @@ from typing import Callable, Optional, Sequence
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC_DIR.parent.parent / "build" / "host"
 GXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
+_LOCAL_INCLUDE = re.compile(rb'^#include "([^"]+)"', re.M)
 
 
 def compiler() -> str:
@@ -45,7 +48,10 @@ class HostLibrary:
         self._lib: Optional[ctypes.CDLL] = None
 
     def path(self) -> Path:
-        h = hashlib.sha1(self.source.read_bytes())
+        text = self.source.read_bytes()
+        h = hashlib.sha1(text)
+        for header in sorted(set(_LOCAL_INCLUDE.findall(text))):
+            h.update((CSRC_DIR / header.decode()).read_bytes())
         h.update(" ".join(self.flags).encode())
         return BUILD_DIR / f"lib{self.name}_{h.hexdigest()[:12]}.so"
 

@@ -123,12 +123,17 @@ def conv_flops(model: torch.nn.Module, *inputs) -> int:
     """Floating-point operations (2 per multiply-add) of the convolutions,
     transposed convolutions and dense layers of one `model(*inputs)`
     call, counted from the shapes each layer sees (forward hooks); the
-    call runs once, without gradients."""
+    call runs once, without gradients.  A deformable convolution counts
+    its contraction as the dense convolution of the same shape."""
+    from ..detect.deform_conv import DeformConv2d
     total = [0]
 
     def hook(mod, args, out):
         x = args[0]
-        if isinstance(mod, torch.nn.Conv2d):
+        if isinstance(mod, DeformConv2d):
+            w = mod.weight
+            total[0] += 2 * out.numel() * w.shape[1] * w.shape[2] * w.shape[3]
+        elif isinstance(mod, torch.nn.Conv2d):
             k = mod.kernel_size[0] * mod.kernel_size[1]
             total[0] += 2 * out.numel() * (mod.in_channels // mod.groups) * k
         elif isinstance(mod, torch.nn.ConvTranspose2d):
@@ -138,7 +143,8 @@ def conv_flops(model: torch.nn.Module, *inputs) -> int:
         else:
             total[0] += 2 * out.numel() * mod.in_features
 
-    kinds = (torch.nn.Conv2d, torch.nn.ConvTranspose2d, torch.nn.Linear)
+    kinds = (torch.nn.Conv2d, torch.nn.ConvTranspose2d, torch.nn.Linear,
+             DeformConv2d)
     handles = [m.register_forward_hook(hook) for m in model.modules()
                if isinstance(m, kinds)]
     try:

@@ -144,20 +144,24 @@ def test_pose_net_matches_jax_and_round_trips(case):
 
 
 def test_zoo_and_refusals():
+    """Every net of JAX's zoo builds (HRNet, HarDNet and the deformable
+    FastPose too); unknown names are refused."""
     from mvsmplfitting_tpu_torch.detect import fastpose as tf
     from mvsmplfitting_tpu_torch.detect import zoo
     assert isinstance(zoo.build_pose_model("FastPose", 26), tf.FastPose)
-    assert set(zoo.POSE_MODELS) == {"fastpose", "simplepose",
-                                    "fastpose_duc", "fastpose_duc_dense"}
+    assert set(zoo.POSE_MODELS) == {"fastpose", "simplepose", "hrnet",
+                                    "hardnet", "fastpose_duc",
+                                    "fastpose_duc_dense"}
+    assert not hasattr(zoo, "PENDING")
     for name in ("hrnet", "hardnet"):
-        with pytest.raises(NotImplementedError, match="11b"):
-            zoo.build_pose_model(name)
-        with pytest.raises(NotImplementedError, match="11b"):
-            W.pose_state_from_flax(name, {"params": {}})
+        assert zoo.build_pose_model(name).num_joints == 17
     with pytest.raises(ValueError, match="unknown pose model"):
         zoo.build_pose_model("nope")
-    with pytest.raises(NotImplementedError, match="11b"):
-        tf.FastPose(26, stage_with_dcn=(False, True, True, True))
+    with pytest.raises(ValueError, match="unknown pose model"):
+        W.pose_state_from_flax("nope", {"params": {}})
+    net = tf.FastPose(26, stage_with_dcn=(False, True, True, True))
+    assert not hasattr(net.preact.layer1[0], "conv2_offset")
+    assert net.preact.layer2[0].conv2_offset.out_channels == 18
 
 
 def test_load_checkpoint_unwraps(tmp_path):

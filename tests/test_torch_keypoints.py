@@ -225,19 +225,41 @@ def test_cli_writes_the_tree_main_reads(tmp_path, weights, image_tree,
                                    ["--smpl_ckpt", "hybrik.pth"],
                                    ["--pose_cfg", "cfg.yaml"]])
 def test_cli_refuses_unported_modes(tmp_path, flags, small_cli, monkeypatch):
+    """The streaming, SMPL and config modes are ported; what they cannot
+    honour is refused before any net is built: a missing video or config
+    file (named), `--smpl`/`--smpl_ckpt` without `--video`."""
     def boom(*a, **k):
         raise AssertionError("loaded a net before refusing")
     monkeypatch.setattr(TP, "PersonDetector", boom)
-    with pytest.raises(NotImplementedError, match="11b"):
-        small_cli.main(["--data_folder", str(tmp_path), "--device", "cpu",
-                        *flags])
+    monkeypatch.chdir(tmp_path)
+    if flags[0] in ("--video", "--pose_cfg"):
+        with pytest.raises(FileNotFoundError, match=flags[1]):
+            small_cli.main(["--data_folder", str(tmp_path), "--device",
+                            "cpu", *flags])
+    else:
+        with pytest.raises(SystemExit, match="--video"):
+            small_cli.main(["--data_folder", str(tmp_path), "--device",
+                            "cpu", *flags])
 
 
-def test_cli_refuses_pending_pose_models(tmp_path, small_cli):
+def test_cli_refuses_pending_pose_models(tmp_path, small_cli, monkeypatch):
+    """HRNet and HarDNet are no longer pending: the CLI builds them by
+    name (and stops here at the detector); an unknown name is refused
+    before any net is built."""
+    class Built(Exception):
+        pass
+
+    def detector(*a, **k):
+        raise Built
+    monkeypatch.setattr(TP, "PersonDetector", detector)
     os.makedirs(tmp_path / "images")
-    with pytest.raises(NotImplementedError, match="11b"):
+    for name in ("hrnet", "hardnet"):
+        with pytest.raises(Built):
+            small_cli.main(["--data_folder", str(tmp_path), "--device",
+                            "cpu", "--pose_model", name])
+    with pytest.raises(ValueError, match="unknown pose model"):
         small_cli.main(["--data_folder", str(tmp_path), "--device", "cpu",
-                        "--pose_model", "hrnet"])
+                        "--pose_model", "nope"])
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a GPU is present")
