@@ -117,7 +117,28 @@ Phases (each prints one line; any failure exits non-zero):
      sequence (4 stages of 3 chol iterations) on the card against the
      CPU, per-frame losses at rtol 1e-3, the shared block at rtol 1e-3
      and atol 1e-4 (betas near 0);
- 19. [cli] the fitting CLI (`mvsmplfitting_tpu_torch.cli.main`) on
+ 19. [shard] the camera- and frame-sharded fits over torch.distributed
+     (`mvsmplfitting_tpu_torch.parallel`) on [fit]'s fixture cut to
+     `B_SHARD` (64) distinct frames, 6 views, smpl, the bundled VPoser,
+     `LMOptions` defaults: (a) a world of 1 in this process on NCCL (mesh
+     1x1), `camera_sharded_fit` with its per-stage cap at 3 and at 40
+     LM iterations, the yardstick; (b) two ranks spawned on this card
+     with gloo, mesh 1x2 (3 views each); (c) four ranks, mesh 2x2.  For
+     each rank of (b) and (c): losses against (a) at rtol 5e-2 after 3
+     iterations and 1e-3 after 40 (`__graft_entry__.py:186-190`), finite
+     and not all equal, B1 and B2 launches >= the rank's LM iterations.
+     Then on the two ranks (mesh 2x1) `batched_fit_frames(mesh=)`
+     against the one-card fit (losses rtol 1e-2,
+     `tests/test_parallel.py:74-76`) and `schur_sequence_fit(mesh=)` on
+     a 64-frame sequence against the one-card one (shared block atol
+     0.15, losses rtol 0.3, `tests/test_schur.py:110-113`), all at
+     max_iters=40.  Per run and rank: wall, LM iterations per stage,
+     collectives, floats all-reduced per iteration and per call, host
+     seconds inside the collectives (the card synchronized around each)
+     and their share of the wall, and the launches; the spawned worlds'
+     start-to-end seconds.  A rank's exception fails the phase;
+     collectives time out after `SHARD_TIMEOUT_S`;
+ 20. [cli] the fitting CLI (`mvsmplfitting_tpu_torch.cli.main`) on
      workspaces in the reference's layout (`synthetic.write_workspace`):
      `cfg_files/fit_batched.yaml` (`save_images: false`) on 128
      frames x 6 views in this process (B1 and B2 launches >= the LM
@@ -135,7 +156,7 @@ Phases (each prints one line; any failure exits non-zero):
      (`save_overlays_multi` at 1920x1080, six files): one pkl per person
      in the truth's x order, the refined collision sums below the solo
      fits';
- 20. [keypoints] the keypoint CLI (`mvsmplfitting_tpu_torch.cli.
+ 21. [keypoints] the keypoint CLI (`mvsmplfitting_tpu_torch.cli.
      keypoints`) at full width: the image reader against OpenCV's
      recorded decodes of `tests/fixtures/images` (sha256); YOLOX-X
      (800x1440) and FastPose (256x192, 26 joints) checkpoints in the
@@ -160,7 +181,7 @@ Phases (each prints one line; any failure exits non-zero):
      margin and neighbour differences exceed 1e-4) and bfloat16 against
      fp32 (heatmaps within 5% of their magnitude, keypoints within 8 px
      where the fp32 peak clears twice bfloat16's change);
- 21. [overlay] the overlays and the adjustment GUI, on the host beside
+ 22. [overlay] the overlays and the adjustment GUI, on the host beside
      the card: (a) `viz/draw.py`'s primitives (342 recorded cv2 calls in
      17 groups) and `fill_faces` (393 triangles) against OpenCV's
      sha256 (`tests/fixtures/overlay/golden.json`); (b) `encode_jpeg` on
@@ -180,7 +201,7 @@ Phases (each prints one line; any failure exits non-zero):
      (six 640x360 JPEGs), a keypoint moved 8 px, `/api/refit`,
      `/api/state` and `/api/save`, with the first fit's, the state's and
      the refit's seconds, the losses and the B1/B2 launches;
- 22. [stream] the keypoint CLI's other modes at full width, with
+ 23. [stream] the keypoint CLI's other modes at full width, with
      `keypoint_weights`' YOLOX-X and FastPose checkpoints: (a) the six
      fixture JPEGs muxed into a Motion-JPEG AVI as written and with
      their DHT segments stripped, every frame read back equal (sha256)
@@ -213,7 +234,8 @@ result line.  Each path's launch counters are set to 0 just before it
 and read just after; the JSON line gives every kernel's launches summed
 over [fit], [collide], [multi], [points] (both runs), [fused], [lbfgs],
 [grad], [gmm], [seq] (all steps), [adjust], [smplx], [smplh], [schur],
-[cli] (its batched and two-person runs; the sequence subprocess's
+[shard] (every fit of (a), every rank's fits in (b) and (c), the
+one-card and frames-sharded batched and Schur fits), [cli] (its batched and two-person runs; the sequence subprocess's
 launches are its own), [keypoints] (none), [overlay] (the demo CLI and
 the GUI) and [stream] (none).
 """
@@ -1428,6 +1450,306 @@ def schur_phase(dev, launches: dict) -> None:
     log("schur", parity_frames=B_CHECK, shared_max_abs=f"{d_shared:.3e}",
         losses_max_rel=f"{rel:.3e}",
         tolerance="shared rtol 1e-3 atol 1e-4, losses rtol 1e-3")
+
+
+B_SHARD = 64           # [shard]'s frames (cut from B_FIT to hold ~90 s)
+SHARD_CAPS = (3, 40)   # [shard]: LM iterations per stage, smoke and converged
+SHARD_RTOL = {3: 5e-2, 40: 1e-3}   # `__graft_entry__.py:186-190`
+SHARD_TIMEOUT_S = 240  # a collective that waits longer fails the rank
+
+
+class CollectiveClock:
+    """Every `torch.distributed.all_reduce` for the length of a `with`
+    block: calls, floats and host seconds inside them (the device is
+    synchronized before and after each, so the time is the collective's
+    own and not the queued kernels')."""
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.calls, self.floats, self.seconds = 0, 0, 0.0
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.dist, self.orig = dist, dist.all_reduce
+
+        def timed(t, *args, **kw):
+            _sync(self.dev)
+            t0 = time.perf_counter()
+            out = self.orig(t, *args, **kw)
+            _sync(self.dev)
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            self.floats += t.numel()
+            return out
+        dist.all_reduce = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.dist.all_reduce = self.orig
+
+
+class ShardIters:
+    """The loop turns of each `_lm_sharded` call (one Jacobian each, so
+    one B1 and one B2 launch each) for the length of a `with` block."""
+
+    def __init__(self):
+        self.iters = []
+
+    def __enter__(self):
+        from mvsmplfitting_tpu_torch.parallel import camera_shard
+        self.module, self.orig = camera_shard, camera_shard._lm_sharded
+
+        def counted(*args, **kw):
+            out = self.orig(*args, **kw)
+            self.iters.append(int(out[2].max()))
+            return out
+        camera_shard._lm_sharded = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.module._lm_sharded = self.orig
+
+
+def _sharded_runs(dev, mesh, problem) -> dict:
+    """`camera_sharded_fit` of `problem` on `mesh` at each of SHARD_CAPS:
+    per cap the losses, wall, LM iterations per stage, B1/B2 launches
+    and collective calls, floats and seconds."""
+    from mvsmplfitting_tpu_torch.fitting.stages import FitConfig
+    from mvsmplfitting_tpu_torch.ops import joint_kernel as JK
+    from mvsmplfitting_tpu_torch.ops import sdf_kernel as SK
+    from mvsmplfitting_tpu_torch.ops import vposer_kernel as VK
+    from mvsmplfitting_tpu_torch.parallel import camera_sharded_fit
+    assets, vw, cam, obs = problem
+    out = {}
+    for cap in SHARD_CAPS:
+        with ShardIters() as its, CollectiveClock(dev) as clock:
+            _sync(dev)
+            reset_launches(JK, VK, SK)
+            t0 = time.perf_counter()
+            x, loss = camera_sharded_fit(FitConfig(), assets, cam, obs, mesh,
+                                         vposer_w=vw, max_iters_cap=cap,
+                                         device=dev)
+            _sync(dev)
+            wall = time.perf_counter() - t0
+            got = read_launches(JK, VK, SK)
+        out[cap] = dict(x=x.cpu(), loss=loss.cpu(), wall=wall,
+                        iters=its.iters, launches=got, calls=clock.calls,
+                        floats=clock.floats, comm_s=clock.seconds)
+    return out
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _frames_runs(dev, mesh, problem, seq) -> dict:
+    """`batched_fit_frames` and `schur_sequence_fit` with `mesh` (None:
+    one card): results, walls, launches and collectives."""
+    from mvsmplfitting_tpu_torch.fitting.initialize import init_guess
+    from mvsmplfitting_tpu_torch.fitting.lm import LMOptions
+    from mvsmplfitting_tpu_torch.fitting.stages import FitConfig
+    from mvsmplfitting_tpu_torch.ops import joint_kernel as JK
+    from mvsmplfitting_tpu_torch.ops import sdf_kernel as SK
+    from mvsmplfitting_tpu_torch.ops import vposer_kernel as VK
+    from mvsmplfitting_tpu_torch.parallel import (BatchedFitInputs,
+                                                  batched_fit_frames,
+                                                  schur_sequence_fit)
+    assets, vw, cam, obs = problem
+    sa, sw, sc, so = seq[:4]
+    cfg = FitConfig(lm=LMOptions(max_iters=40))
+    out = {}
+    for name in ("batched", "schur"):
+        with CollectiveClock(dev) as clock:
+            _sync(dev)
+            reset_launches(JK, VK, SK)
+            t0 = time.perf_counter()
+            if name == "batched":
+                res = batched_fit_frames(
+                    cfg, assets, cam, BatchedFitInputs(
+                        obs, torch.full((B_SHARD,), 1080.0, device=dev)),
+                    vposer_w=vw, mesh=mesh, device=dev)
+                got = dict(loss=res.loss.cpu(),
+                           iters=res.lm_iters.amax(0).tolist())
+            else:
+                g = init_guess(sa, sc, so.gt2d, so.conf, so.view_mask)
+                _, _, losses, shared, iters = schur_sequence_fit(
+                    cfg, sa, sc, so, g.params, g.z, vposer_w=sw, mesh=mesh,
+                    device=dev)
+                got = dict(loss=losses.cpu(), shared=shared.cpu(),
+                           iters=iters)
+            _sync(dev)
+            got.update(wall=time.perf_counter() - t0,
+                       launches=read_launches(JK, VK, SK),
+                       calls=clock.calls, floats=clock.floats,
+                       comm_s=clock.seconds)
+        out[name] = got
+    return out
+
+
+def _shard_inputs(dev):
+    from mvsmplfitting_tpu_torch.synthetic import (make_person_sequence,
+                                                   make_problem)
+    return (make_problem(6, B_SHARD, seed=0, device=dev),
+            make_person_sequence(B_SHARD, seed=0, device=dev))
+
+
+def shard_child(rank: int, world: int, port: int, device: str,
+                out_dir: str) -> None:
+    """One spawned rank of [shard] (b) or (c): a gloo world on one card;
+    writes its results to ``out_dir/rank<rank>.pt``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from mvsmplfitting_tpu_torch import parallel as P
+    from mvsmplfitting_tpu_torch.ops import cuda_build
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        # The parent built the kernels; a rank only loads them.
+        for name in ("joint_jacobian", "vposer_tail"):
+            path = cuda_build.library_path(name)
+            assert path.exists(), f"rank {rank}: {path} was not built"
+    dev = P.init_distributed(f"localhost:{port}", world, rank,
+                             backend="gloo", device=dev,
+                             timeout=datetime.timedelta(
+                                 seconds=SHARD_TIMEOUT_S))
+    problem, seq = _shard_inputs(dev)
+    layout = (1, 2) if world == 2 else (2, 2)
+    got = {"layout": layout, "sharded": _sharded_runs(
+        dev, P.make_mesh(P.MeshLayout(*layout)), problem)}
+    if world == 2:
+        got["frames"] = _frames_runs(dev, P.make_mesh(P.MeshLayout(2, 1)),
+                                     problem, seq)
+    torch.save(got, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _run_line(run, rank, mesh, cap, r) -> dict:
+    """The fields of one sharded run's log line."""
+    calls = max(r["calls"], 1)
+    iters = sum(r["iters"])
+    return dict(run=run, rank=rank, mesh=mesh, cap=cap,
+                wall_s=f"{r['wall']:.3f}",
+                lm_iterations=",".join(str(i) for i in r["iters"]),
+                collectives=r["calls"],
+                floats_per_iteration=f"{r['floats'] / max(iters, 1):.0f}",
+                floats_per_call=f"{r['floats'] / calls:.0f}",
+                collective_s=f"{r['comm_s']:.3f}",
+                collective_share=f"{r['comm_s'] / r['wall']:.3f}",
+                launches=json.dumps(r["launches"]).replace(" ", ""))
+
+
+def shard_phase(dev, launches: dict) -> None:
+    """[shard]: the camera- and frame-sharded fits over torch.distributed
+    (see the docstring)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from mvsmplfitting_tpu_torch import parallel as P
+    t_phase = time.perf_counter()
+    total = {}
+
+    def count(got):
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+
+    # (a) the yardstick: a world of 1 in this process, NCCL on the card.
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    P.init_distributed(f"localhost:{_free_port()}", 1, 0, backend=backend,
+                       device=dev)
+    try:
+        assert dist.get_backend() == backend
+        problem, seq = _shard_inputs(dev)
+        ref = _sharded_runs(dev, P.make_mesh(P.MeshLayout(1, 1)), problem)
+    finally:
+        dist.destroy_process_group()
+    for cap, r in ref.items():
+        count(r["launches"])
+        loss = r["loss"]
+        log("shard", backend=backend, frames=B_SHARD, views=6,
+            median_loss=f"{loss.median().item():.3f}",
+            **_run_line("a", 0, "1x1", cap, r))
+        assert bool(torch.isfinite(loss).all()), "non-finite loss"
+        assert len(np.unique(np.round(loss.numpy(), 3))) > 1, loss
+        for name in ("joint_jacobian", "vposer_tail"):
+            assert r["launches"][name] >= sum(r["iters"]), (name, r)
+    one = _frames_runs(dev, None, problem, seq)
+    for name, r in one.items():
+        count(r["launches"])
+
+    # (b), (c): spawned ranks, gloo on the same card.
+    out_dir = tempfile.mkdtemp(prefix="mvsf_shard_")
+    try:
+        ranks = {}
+        for world in (2, 4):
+            t0 = time.perf_counter()
+            sub = os.path.join(out_dir, str(world))
+            os.makedirs(sub)
+            mp.spawn(shard_child, args=(world, _free_port(), str(dev), sub),
+                     nprocs=world, join=True)
+            ranks[world] = [torch.load(os.path.join(sub, f"rank{r}.pt"),
+                                       weights_only=False)
+                            for r in range(world)]
+            log("shard", world=world, spawn_and_run_s=
+                f"{time.perf_counter() - t0:.2f}")
+    finally:
+        shutil.rmtree(out_dir)
+
+    for world, run in ((2, "b"), (4, "c")):
+        for rank, got in enumerate(ranks[world]):
+            mesh = "x".join(str(a) for a in got["layout"])
+            for cap, r in got["sharded"].items():
+                count(r["launches"])
+                loss, want = r["loss"], ref[cap]["loss"]
+                rel = ((loss - want).abs() / want.abs()).max().item()
+                log("shard", max_rel_vs_a=f"{rel:.3e}",
+                    **_run_line(run, rank, mesh, cap, r))
+                assert bool(torch.isfinite(loss).all()), (run, rank, loss)
+                assert len(np.unique(np.round(loss.numpy(), 3))) > 1, loss
+                torch.testing.assert_close(loss, want, rtol=SHARD_RTOL[cap],
+                                           atol=0.0)
+                for name in ("joint_jacobian", "vposer_tail"):
+                    assert r["launches"][name] >= sum(r["iters"]), (name, r)
+
+    # The frames-sharded batched and Schur fits against one card.
+    for rank, got in enumerate(ranks[2]):
+        for name, r in got["frames"].items():
+            count(r["launches"])
+            want = one[name]
+            rel = ((r["loss"] - want["loss"]).abs()
+                   / want["loss"].abs()).max().item()
+            extra = {}
+            if name == "schur":
+                extra["shared_max_abs_vs_one_card"] = (
+                    f"{(r['shared'] - want['shared']).abs().max().item():.3e}")
+                torch.testing.assert_close(r["shared"], want["shared"],
+                                           rtol=0.0, atol=0.15)
+                torch.testing.assert_close(r["loss"], want["loss"],
+                                           rtol=0.3, atol=0.0)
+            else:
+                torch.testing.assert_close(r["loss"], want["loss"],
+                                           rtol=1e-2, atol=0.0)
+            log("shard", fit=name, one_card_wall_s=f"{want['wall']:.3f}",
+                one_card_lm_iterations=",".join(str(i)
+                                                for i in want["iters"]),
+                max_rel_vs_one_card=f"{rel:.3e}", **extra,
+                **_run_line("b", rank, "2x1", 40, r))
+            for k in ("joint_jacobian", "vposer_tail"):
+                assert r["launches"][k] >= sum(r["iters"]), (name, k, r)
+    launches["shard"] = total
+    log("shard", seconds=f"{time.perf_counter() - t_phase:.1f}",
+        launches=json.dumps(total).replace(" ", ""))
 
 
 def _tree_mtimes(root: str) -> dict:
@@ -2946,6 +3268,7 @@ def main() -> int:
                  dict(hand_dim=6, num_expr=10, opt_face=True), 40, 8.0)
     family_phase(dev, path, "smplh", B_SMPLH, dict(hand_dim=6), 30, 6.0)
     schur_phase(dev, path)
+    shard_phase(dev, path)
     cli_phase(dev, path)
     kp_weights = keypoint_weights(dev)
     keypoints_phase(dev, path, kp_weights)

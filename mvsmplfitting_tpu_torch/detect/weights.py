@@ -5,8 +5,9 @@ The port's modules are named as the reference's torch modules, so a
 reference checkpoint (`bytetrack_x_mot17.pth.tar` for YOLOX,
 `fast_res50_256x192.pth` for FastPose) loads with `load_state_dict`
 once `load_checkpoint` has unwrapped it.  `yolox_state_from_flax`,
-`pose_state_from_flax` and `hybrik_state_from_flax` invert JAX's
-converters (`detect/convert.py:74-468`): they turn a flax `{"params",
+`pose_state_from_flax`, `hybrik_state_from_flax` and
+`yolo_fpn_state_from_flax` invert JAX's converters
+(`detect/convert.py:74-515`): they turn a flax `{"params",
 "batch_stats"}` tree of arrays back into the reference's `state_dict`,
 so weights held by the JAX package carry across.  Conv kernels go (kH,
 kW, I, O) -> (O, I, kH, kW), dense kernels are transposed,
@@ -352,4 +353,38 @@ def hybrik_state_from_flax(variables: Mapping) -> Dict[str, np.ndarray]:
     t.deconv_head()
     for name in ("fc1", "fc2", "decshape", "decphi", "deccam"):
         t.dense((name,), name)
+    return t.sd
+
+
+def yolo_fpn_state_from_flax(variables: Mapping, depth: int = 53
+                             ) -> Dict[str, np.ndarray]:
+    """Inverse of JAX's `convert_yolo_fpn_sd` (`convert.py:476-515`):
+    `YOLOFPN` flax variables -> the reference's state_dict (numpy), in
+    the names `yolo_fpn.YOLOFPN` carries."""
+    from .yolo_fpn import DEPTH_BLOCKS
+    t = _Inverse(variables)
+    bb = ("backbone",)
+    t.convbn(bb + ("stem0",), "backbone.stem.0")
+    t.convbn(bb + ("stem1_conv",), "backbone.stem.1")
+    for layer in ("layer1", "layer2"):
+        t.convbn(bb + ("stem1_res0", layer), f"backbone.stem.2.{layer}")
+    blocks = DEPTH_BLOCKS[depth]
+    for name, n in zip(("dark2", "dark3", "dark4", "dark5"), blocks):
+        t.convbn(bb + (f"{name}_conv",), f"backbone.{name}.0")
+        for i in range(n):
+            for layer in ("layer1", "layer2"):
+                t.convbn(bb + (f"{name}_res{i}", layer),
+                         f"backbone.{name}.{i + 1}.{layer}")
+    for j, src in enumerate(("dark5_spp0", "dark5_spp1", None,
+                             "dark5_spp3", "dark5_spp4")):
+        key = f"backbone.dark5.{blocks[3] + 1 + j}"
+        if src is None:                   # the SPPBottleneck itself
+            for c in ("conv1", "conv2"):
+                t.convbn(bb + ("dark5_spp2", c), f"{key}.{c}")
+        else:
+            t.convbn(bb + (src,), key)
+    for out in ("out1", "out2"):
+        t.convbn((f"{out}_cbl",), f"{out}_cbl")
+        for i in range(5):
+            t.convbn((f"{out}_{i}",), f"{out}.{i}")
     return t.sd

@@ -8,7 +8,10 @@ the L2 shape prior, the exponential bending prior and the optional
 3D-joint term.  `residuals` restates it
 as a least-squares vector with ``sum(r^2) == total_energy`` for the LM
 solver, and `residual_jacobian` gives (r, dr/dx) with the deep blocks in
-closed form (the two CUDA kernels on the card).
+closed form (the two CUDA kernels on the card).  `data_residuals` and
+`prior_residuals` are its two halves, for the camera-sharded solver
+(`parallel/camera_shard.py`), which sums the per-view data blocks over
+ranks and adds the prior blocks once.
 
 The interpenetration term (grid engine, `ops/sdf.py`) samples each
 frame's body in its own voxelized field; voxelizing launches a kernel on
@@ -297,15 +300,29 @@ def _joints3d_rows(spec: EnergySpec, obs: Observations,
 
 def _data_rows_from_joints(spec: EnergySpec, cam: Camera,
                            obs: Observations, weights: StageWeights,
-                           joints: torch.Tensor) -> torch.Tensor:
+                           joints: torch.Tensor,
+                           include_3d: bool = True) -> torch.Tensor:
     """Data rows from the mapped joints: 2D (B, V*K*2), then the 3D rows
-    (K*3) when the term is on."""
+    (K*3) when the term is on and `include_3d`."""
     w = _data_weights(spec, obs) * _col(weights.data, 2)
     e = gmof_residual(obs.gt2d - _project(cam, joints), spec.rho)
     rows = [(w[..., None] * e).reshape(joints.shape[0], -1)]
-    if _use_3d(spec, obs):
+    if include_3d and _use_3d(spec, obs):
         rows.append(_joints3d_rows(spec, obs, weights, joints))
     return torch.cat(rows, dim=-1)
+
+
+def data_residuals(spec: EnergySpec, assets: SMPLAssets, cam: Camera,
+                   obs: Observations, weights: StageWeights,
+                   vposer_w: Optional[vposer_lib.VPoserWeights],
+                   x: torch.Tensor, include_3d: bool = True) -> torch.Tensor:
+    """The data rows (B, V*K*2 [+ K*3]) of `residuals`.  A camera-sharded
+    solver passes ``include_3d=False`` and adds the (view-independent)
+    3D rows once, with the priors; else each camera rank would count
+    them once each."""
+    joints = _forward(spec, assets, vposer_w, x)[4]
+    return _data_rows_from_joints(spec, cam, obs, weights, joints,
+                                  include_3d)
 
 
 def joints3d_residuals(spec: EnergySpec, assets: SMPLAssets,
@@ -367,6 +384,28 @@ def _tail_prior_rows(spec: EnergySpec, weights: StageWeights,
     return torch.cat(rows, dim=-1)
 
 
+def _prior_rows(spec: EnergySpec, weights: StageWeights,
+                gmm: Optional[GMMPrior], params: SMPLParams,
+                z: Optional[torch.Tensor],
+                body_pose: torch.Tensor) -> torch.Tensor:
+    """The core prior rows, then the SMPL-H/X tail rows."""
+    return torch.cat([_prior_rows_core(spec, weights, gmm, z, body_pose,
+                                       params.betas),
+                      _tail_prior_rows(spec, weights, params)], dim=-1)
+
+
+def prior_residuals(spec: EnergySpec, weights: StageWeights,
+                    gmm: Optional[GMMPrior],
+                    vposer_w: Optional[vposer_lib.VPoserWeights],
+                    x: torch.Tensor) -> torch.Tensor:
+    """The prior rows (B, r) of `residuals`: pose (32, or 69 + 69), shape
+    (NB), bending (4), then the SMPL-H/X tail rows."""
+    params, z = unpack(spec, x)
+    body_pose = (vposer_lib.decode(vposer_w, z) if spec.use_vposer
+                 else params.body_pose)
+    return _prior_rows(spec, weights, gmm, params, z, body_pose)
+
+
 def residuals(spec: EnergySpec, assets: SMPLAssets, cam: Camera,
               obs: Observations, weights: StageWeights,
               vposer_w: Optional[vposer_lib.VPoserWeights],
@@ -375,20 +414,18 @@ def residuals(spec: EnergySpec, assets: SMPLAssets, cam: Camera,
     """Residual rows (B, m) with sum(r^2, -1) == total_energy (the GMM's
     -log w offset aside, which enters the scalar only): the 2D data rows
     (V*K*2, smooth `gmof_residual`), the 3D-joint rows (K*3) when that
-    term is on, the prior rows and, when the collision term is on this
+    term is on (together `data_residuals`), the prior rows
+    (`prior_residuals`) and, when the collision term is on this
     stage, one row w * s (the frame's one body sampled in its own field,
     `energy.py:439-447` with P = 1).
 
     `grids` (from `collision_grids`) holds the fields fixed; without it
     the body is voxelized at x, which needs x to be a plain tensor.
-    The SMPL-H/X tail prior rows follow the prior rows.
     """
     params, z, body_pose, verts, joints = _forward(
         spec, assets, vposer_w, x, need_verts=_coll_on(spec, weights))
     rows = [_data_rows_from_joints(spec, cam, obs, weights, joints),
-            _prior_rows_core(spec, weights, gmm, z, body_pose,
-                             params.betas),
-            _tail_prior_rows(spec, weights, params)]
+            _prior_rows(spec, weights, gmm, params, z, body_pose)]
     if _coll_on(spec, weights):
         if grids is None:
             grids = sdf_ops.person_grids(verts[:, None], assets.faces,

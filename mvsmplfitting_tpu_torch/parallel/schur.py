@@ -1,5 +1,6 @@
-"""Sequence fit with one shared shape by Schur-complement elimination, on
-one card (port of `parallel/schur.py` with ``mesh=None``).
+"""Sequence fit with one shared shape by Schur-complement elimination
+(port of `parallel/schur.py`), on one card or with the frames split over
+the `frames` axis of a mesh.
 
 One person has one shape, so a sequence couples a shared (betas, scale)
 block against per-frame (pose block, orient, transl) blocks.  The
@@ -12,10 +13,14 @@ Gauss-Newton normal equations have block-arrow structure:
 
 Each frame's A_f (38 x 38 with VPoser) is inverted on its own; the shared
 step solves the 11 x 11 Schur complement S = C - sum_f B_f^T A_f^-1 B_f.
-JAX's `psum` over the frames mesh axis is a sum over the frame axis here.
-The sequence has one LM lambda, one accept and one ftol stop, judged on
-the loss summed over all frames, so a frame's result depends on the whole
-sequence.
+JAX's `psum` over the frames mesh axis is a sum over the frame axis here,
+and with a mesh each rank fits its block of frames and one all_reduce
+over `frames` per iteration adds the ranks' sums (C, B^T A^-1 B, h,
+B^T A^-1 g: 2 (ns^2 + ns) floats), a second the trial loss.  Every rank
+then solves the same shared step from the same sums, so all take the
+same accepts and loop turns.  The sequence has one LM lambda, one accept
+and one ftol stop, judged on the loss summed over all frames, so a
+frame's result depends on the whole sequence.
 
 Each iteration takes the packed per-frame Jacobian (B, m, n) from
 `stages.stage_jacobian`, whose per-stage choice the batched fit shares:
@@ -30,9 +35,11 @@ it.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..device import DeviceLike, resolve_device
 from ..fitting import energy as E
@@ -42,6 +49,7 @@ from ..fitting.stages import (FitConfig, default_stages, frame_heights,
                               stage_jacobian)
 from ..models.camera import Camera
 from ..models.smpl import SMPLParams
+from .mesh import FRAMES_AXIS, frames_slice, gather_frames
 
 # Parameter split: shared = [betas (NB), scale (1)]; per frame = [pose
 # block (32 or 69), orient (3), transl (3)].
@@ -72,7 +80,8 @@ def _assemble_x(spec: EnergySpec, xf: torch.Tensor, xs: torch.Tensor
 def schur_sequence_fit(cfg: FitConfig, assets, cam: Camera,
                        obs: Observations, init_params: SMPLParams,
                        init_z: torch.Tensor, vposer_w=None, gmm=None,
-                       img_height=1080.0, device: DeviceLike = None):
+                       img_height=1080.0, mesh=None,
+                       device: DeviceLike = None):
     """Fit B frames of one person with one shared (betas, scale) on
     `device` (CUDA unless ``device="cpu"``).
 
@@ -80,6 +89,12 @@ def schur_sequence_fit(cfg: FitConfig, assets, cam: Camera,
       obs: (B, V, ...) observations of one person over time.
       init_params / init_z: (B, ...) per-frame initial guesses; the
         shared block starts from frame 0's.
+      img_height: a scalar, or (B,) per frame.
+      mesh: optional (frames, cameras) mesh (`mesh.make_mesh`): every
+        rank passes the whole sequence, fits the frames of its `frames`
+        coordinate (ranks that differ only in `cameras` repeat the same
+        work) and gets the whole result back; B divisible by the frames
+        axis.
 
     Returns:
       (params (B, ...), z (B, 32), per-frame losses at the last stage's
@@ -88,7 +103,20 @@ def schur_sequence_fit(cfg: FitConfig, assets, cam: Camera,
     dev = resolve_device(device)
     spec, opts = cfg.spec, cfg.lm
     nf, ns = split_dims(spec)
-    assets, cam, obs = assets.to(dev), cam.to(dev), obs.to(dev)
+    B_all = obs.gt2d.shape[0]
+    fs = slice(None) if mesh is None else frames_slice(mesh, B_all)
+    group = None if mesh is None else mesh.get_group(FRAMES_AXIS)
+
+    def frames_sum(t):
+        """A sum over the sequence's frames from this rank's sum."""
+        if group is not None:
+            dist.all_reduce(t, group=group)
+        return t
+
+    assets, cam = assets.to(dev), cam.to(dev)
+    obs = Observations(*(None if t is None else t[fs].to(dev)
+                         for t in (getattr(obs, f.name)
+                                   for f in dataclasses.fields(obs))))
     vposer_w = None if vposer_w is None else vposer_w.to(dev)
     gmm = None if gmm is None else gmm.to(dev)
     init_params = SMPLParams(**{k: None if v is None else v.to(dev)
@@ -105,9 +133,12 @@ def schur_sequence_fit(cfg: FitConfig, assets, cam: Camera,
     eye_s = torch.eye(ns, device=dev)
 
     xf = torch.cat([init_z if spec.use_vposer else init_params.body_pose,
-                    init_params.global_orient, init_params.transl], dim=-1)
+                    init_params.global_orient, init_params.transl],
+                   dim=-1)[fs]
     xs = torch.cat([init_params.betas[0], init_params.scale[:1]])
-    stages = default_stages(cfg, frame_heights(img_height, xf))
+    heights = torch.as_tensor(img_height, dtype=torch.float32, device=dev)
+    stages = default_stages(cfg, frame_heights(
+        heights[fs] if heights.dim() else heights, xf))
     stage_iters: List[int] = []
 
     for weights in stages:
@@ -122,7 +153,7 @@ def schur_sequence_fit(cfg: FitConfig, assets, cam: Camera,
 
         def total(xf_, xs_, res=res):
             r = res(_assemble_x(spec, xf_, xs_))
-            return torch.sum(r * r)
+            return frames_sum(torch.sum(r * r)[None])[0]
 
         loss = total(xf, xs)
         lam = torch.tensor(opts.init_lambda, device=dev)
@@ -141,6 +172,12 @@ def schur_sequence_fit(cfg: FitConfig, assets, cam: Camera,
             BtAi = Bm.transpose(1, 2) @ A_inv                  # (B, ns, nf)
             BtAiB = torch.sum(BtAi @ Bm, dim=0)
             BtAig = torch.sum((BtAi @ gf[..., None])[..., 0], dim=0)
+            if group is not None:
+                sums = frames_sum(torch.cat([C.flatten(), BtAiB.flatten(),
+                                             h, BtAig]))
+                C, BtAiB = (sums[i * ns * ns:(i + 1) * ns * ns].view(ns, ns)
+                            for i in range(2))
+                h, BtAig = sums[2 * ns * ns:].view(2, ns)
             dC = torch.clamp_min(torch.diagonal(C), 1e-8)
             S = C - BtAiB + lam * torch.diag(dC) + 1e-12 * eye_s
             ds = -_solve_spd(S[None], (h - BtAig)[None], "chol")[0]
@@ -166,6 +203,9 @@ def schur_sequence_fit(cfg: FitConfig, assets, cam: Camera,
     r = E.residuals(spec, assets, cam, obs, stages[-1], vposer_w, gmm,
                     _assemble_x(spec, xf, xs))
     losses = torch.sum(r * r, dim=-1)
+    if mesh is not None:
+        xf = gather_frames(mesh, xf, B_all)
+        losses = gather_frames(mesh, losses, B_all)
 
     B = xf.shape[0]
     params = SMPLParams(
