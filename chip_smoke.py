@@ -229,6 +229,29 @@ Phases (each prints one line; any failure exits non-zero):
      `HYBRIK_VERT_ATOL` (1e-4 m) for every person whose swings stay
      clear of antiparallel (1 + cos >= 1e-4), the others reported apart;
      no B1-B4 launch in any of its CLI runs;
+ 24. [train] the training of the detector and the pose nets, on a
+     synthetic COCO workspace over the six 1920x1080 fixture views
+     (`TR_PER_VIEW` persons a view with 17 keypoints; `TR_DET_IMAGES`
+     image entries with 1-4 person boxes): (a) `cli.train_pose` at its
+     defaults (FastPose, 256x192, heatmap 64x48, batch 32, adam) for
+     `TR_POSE_STEPS` steps; (b) `cli.train_yolox` at YOLOX-X (640x640,
+     batch 8) for `TR_YOLOX_STEPS` steps with mosaic and mixup, then one
+     no-aug step with the L1 loss (its L1 term > 0, the others' 0); (c)
+     `TR_HYBRIK_STEPS` HybrIK steps (256x256, batch `TR_HYBRIK_BATCH`,
+     theta through the analytic IK); per run steps/s, crops or images a
+     second, device seconds a step (CUDA events) against host
+     data-loading seconds a step, checkpoint seconds, peak memory, the
+     first and last loss, checkpoints read back, finite losses and no
+     B1-B4 launch; (d) one SGD step of a FastPose (128x96, batch 8) and
+     a small YOLOX (0.33/0.25, 128x128, batch 4) on the card against
+     the CPU from the same weights: in float64 the loss and every
+     parameter and buffer at rtol 1e-4 / atol 1e-6, in float32 the loss
+     at rtol 1e-4 and the card's step no farther from the CPU's float64
+     one than 3x the CPU's float32 step plus 1 (in units of 1e-6 +
+     1e-4 |p|: float32 gradients of train-mode BatchNorm nets at small
+     batches are far from float64 on any device); (e) `data/imgproc.py`
+     against OpenCV's recorded results (`tests/fixtures/imgproc`:
+     sha256, one case within its one-ulp bound), with host ms per call;
 then the total seconds, the card line, the kernels JSON line and the
 result line.  Each path's launch counters are set to 0 just before it
 and read just after; the JSON line gives every kernel's launches summed
@@ -237,7 +260,7 @@ over [fit], [collide], [multi], [points] (both runs), [fused], [lbfgs],
 [shard] (every fit of (a), every rank's fits in (b) and (c), the
 one-card and frames-sharded batched and Schur fits), [cli] (its batched and two-person runs; the sequence subprocess's
 launches are its own), [keypoints] (none), [overlay] (the demo CLI and
-the GUI) and [stream] (none).
+the GUI), [stream] and [train] (none).
 """
 
 from __future__ import annotations
@@ -3081,6 +3104,332 @@ def stream_phase(dev, launches: dict, weights) -> None:
             launches_b1_b4=0, card=card)
 
 
+TR_PER_VIEW = 32       # [train] (a): persons a fixture view (192: 6 batches of 32)
+TR_DET_IMAGES = 32     # [train] (b): image entries over the six views (4 batches of 8)
+TR_POSE_STEPS = 6      # [train] (a)
+TR_YOLOX_STEPS = 4     # [train] (b), mosaic and mixup; then one no-aug L1 step
+TR_HYBRIK_STEPS = 3    # [train] (c)
+TR_HYBRIK_BATCH = 16   # [train] (c): crops a step
+TR_RTOL, TR_ATOL = 1e-4, 1e-6    # [train] (d): card vs CPU, float64
+
+
+def _train_workspace(root: str, seed: int = 0) -> dict:
+    """A synthetic COCO workspace over the six 1920x1080 fixture views:
+    person-keypoint GT with `TR_PER_VIEW` persons a view (17 keypoints
+    inside each box, ~85% visible) and instances GT of `TR_DET_IMAGES`
+    image entries (view i % 6, 1-4 person boxes each)."""
+    rng = np.random.default_rng(seed)
+    H, W = 1080, 1920
+
+    def box():
+        w = float(rng.uniform(90, 320))
+        h = float(min(w * rng.uniform(1.6, 2.8), H - 2))
+        return [float(rng.uniform(0, W - w)), float(rng.uniform(0, H - h)),
+                w, h]
+    cats = [{"id": 1, "name": "person"}]
+    images = [{"id": v, "file_name": f"Camera0{v}.jpg", "width": W,
+               "height": H} for v in range(6)]
+    anns = []
+    for v in range(6):
+        for _ in range(TR_PER_VIEW):
+            x, y, w, h = box()
+            kp = np.zeros((17, 3))
+            kp[:, 0] = rng.uniform(x, x + w, 17)
+            kp[:, 1] = rng.uniform(y, y + h, 17)
+            kp[:, 2] = np.where(rng.uniform(0, 1, 17) > 0.15, 2, 0)
+            anns.append({"id": len(anns), "image_id": v, "category_id": 1,
+                         "bbox": [x, y, w, h], "iscrowd": 0,
+                         "keypoints": kp.ravel().tolist(),
+                         "num_keypoints": int((kp[:, 2] > 0).sum())})
+    out = {"img_root": os.path.join(IMAGE_FIXTURES, "views"),
+           "pose": os.path.join(root, "person_keypoints.json"),
+           "det": os.path.join(root, "instances.json")}
+    with open(out["pose"], "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": cats}, f)
+    images = [{"id": i, "file_name": f"Camera0{i % 6}.jpg", "width": W,
+               "height": H} for i in range(TR_DET_IMAGES)]
+    anns = []
+    for i in range(TR_DET_IMAGES):
+        for _ in range(int(rng.integers(1, 5))):
+            anns.append({"id": len(anns), "image_id": i, "category_id": 1,
+                         "bbox": box(), "iscrowd": 0})
+    with open(out["det"], "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": cats}, f)
+    return out
+
+
+def _hybrik_batch(rng, imgs, n: int) -> dict:
+    """`n` HybrIK training samples (256x256, `hybrik_train_sample`) on the
+    fixture views: a synthetic person box, 17 + 29 image joints inside
+    it, metric joints, SMPL beta/theta and twists."""
+    from mvsmplfitting_tpu_torch.detect import augment3d as A3
+    samples = []
+    for i in range(n):
+        src = imgs[i % len(imgs)]
+        w = float(rng.uniform(200, 420))
+        h = float(min(w * rng.uniform(1.5, 2.2), 1000.0))
+        x0, y0 = float(rng.uniform(0, 1920 - w)), float(rng.uniform(0, 1080 - h))
+
+        def joints(J):
+            return np.concatenate([
+                rng.uniform([x0, y0], [x0 + w, y0 + h], (J, 2)),
+                rng.uniform(-600, 600, (J, 1))], 1)
+        label = {"bbox": [x0, y0, x0 + w, y0 + h],
+                 "joint_img_17": joints(17),
+                 "joint_vis_17": np.ones((17, 3)),
+                 "joint_relative_17": rng.normal(0, 300, (17, 3)),
+                 "joint_img_29": joints(29),
+                 "joint_vis_29": np.ones((29, 3)),
+                 "joint_cam_29": rng.normal(0, 300, (29, 3)),
+                 "beta": rng.normal(0, 1, 10),
+                 "theta": rng.normal(0, 0.3, (24, 3)),
+                 "twist_phi": rng.normal(0, 1, (23, 2)),
+                 "twist_weight": np.ones((23, 2))}
+        samples.append(A3.hybrik_train_sample(rng, src[..., ::-1], label))
+    return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+
+
+def _card_vs_cpu(name, model, batch, make_step, dev) -> dict:
+    """One SGD step (lr 1e-3, momentum 0.9, Nesterov, weight decay 5e-4)
+    from the same weights on the card and on the CPU, in float64 (held at
+    TR_RTOL / TR_ATOL) and in float32 (the card's and the CPU's float32
+    steps against the CPU's float64 one, in units of TR_ATOL + TR_RTOL
+    |p|: the card's may be at most 3x the CPU's, plus 1)."""
+    import copy
+
+    from mvsmplfitting_tpu_torch.detect import train as T
+
+    def run(d, dtype):
+        m = copy.deepcopy(model).to(device=d, dtype=dtype)
+        opt = T.Optimizer("sgd", 1e-3, list(m.parameters()))
+        st = T.init_train_state(m, opt)
+        loss, _ = make_step()(st, {
+            k: v.to(device=d, dtype=dtype if v.is_floating_point()
+                    else v.dtype) for k, v in batch.items()})
+        sd = {k: v.detach().to("cpu", torch.float64)
+              for k, v in m.state_dict().items() if v.is_floating_point()}
+        return float(loss), sd
+
+    def worst(a, b):
+        return max(float(((a[k] - b[k]).abs()
+                          / (TR_ATOL + TR_RTOL * b[k].abs())).max())
+                   for k in b)
+    l64c, s64c = run(dev, torch.float64)
+    l64h, s64h = run("cpu", torch.float64)
+    l32c, s32c = run(dev, torch.float32)
+    l32h, s32h = run("cpu", torch.float32)
+    assert abs(l64c - l64h) <= TR_RTOL * abs(l64h), (name, l64c, l64h)
+    assert abs(l32c - l32h) <= TR_RTOL * abs(l32h), (name, l32c, l32h)
+    w64, w32c, w32h = worst(s64c, s64h), worst(s32c, s64h), worst(s32h, s64h)
+    assert w64 <= 1.0, (name, w64)
+    assert w32c <= 3.0 * w32h + 1.0, (name, w32c, w32h)
+    return dict(net=name, loss64_rel=f"{abs(l64c - l64h) / abs(l64h):.3e}",
+                loss32_rel=f"{abs(l32c - l32h) / abs(l32h):.3e}",
+                params64_worst=f"{w64:.3e}", card32_vs_cpu64=f"{w32c:.3f}",
+                cpu32_vs_cpu64=f"{w32h:.3f}",
+                max_abs64=f"{max(float((s64c[k] - s64h[k]).abs().max()) for k in s64h):.3e}")
+
+
+def train_phase(dev, launches: dict) -> None:
+    """[train]: the training of the detector and the pose nets at full
+    width on the card (no B1-B4 on this path)."""
+    import contextlib
+    import importlib.util
+    import io
+    import tempfile
+
+    from mvsmplfitting_tpu_torch.cli import train_pose, train_yolox
+    from mvsmplfitting_tpu_torch.data.images import read_image
+    from mvsmplfitting_tpu_torch.detect import train as T
+    from mvsmplfitting_tpu_torch.detect.fastpose import FastPose
+    from mvsmplfitting_tpu_torch.detect.hybrik import Simple3DPoseSMPLCam
+    from mvsmplfitting_tpu_torch.detect.yolox import YOLOX
+    from mvsmplfitting_tpu_torch.models.assets import synthetic_smpl
+    from mvsmplfitting_tpu_torch.ops import joint_kernel as JK
+    from mvsmplfitting_tpu_torch.ops import sdf_kernel as SK
+    from mvsmplfitting_tpu_torch.ops import vposer_kernel as VK
+    from mvsmplfitting_tpu_torch.utils.profiling import StageTimer
+
+    card = repr(card_line())
+    t_phase = time.perf_counter()
+
+    def figures(tag, res, timer, wall, unit, per_step):
+        steps = res["steps"]
+        losses = res["losses"]
+        assert np.isfinite(losses).all(), (tag, losses)
+        t = timer.timings
+        data_s = sum(t.get("data", []))
+        ckpt_s = sum(t.get("checkpoint", []))
+        loop_s = res["seconds"] - ckpt_s - sum(t.get("eval", []))
+        dev_s = timer.device_totals().get("step", 0.0)
+        return dict(steps=steps, steps_per_s=f"{steps / loop_s:.3f}",
+                    **{f"{unit}_per_s": f"{steps * per_step / loop_s:.2f}"},
+                    device_s_per_step=f"{dev_s / steps:.4f}",
+                    host_data_s_per_step=f"{data_s / steps:.4f}",
+                    loop_s=f"{loop_s:.3f}", checkpoint_s=f"{ckpt_s:.3f}",
+                    wall_s=f"{wall:.3f}",
+                    peak_gb=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+                    loss_first=f"{losses[0]:.6f}",
+                    loss_last=f"{losses[-1]:.6f}")
+
+    def run(tag, fn):
+        timer = StageTimer()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(JK, VK, SK)
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = fn(timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_launches(JK, VK, SK)
+        launches[f"train_{tag}"] = got
+        assert not any(got.values()), f"[train] {tag} launched {got}"
+        return res, timer, wall, buf.getvalue()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ws = _train_workspace(tmp)
+
+        # (a) the pose trainer at its defaults.
+        out = os.path.join(tmp, "pose")
+        res, timer, wall, text = run("pose", lambda timer: train_pose.main(
+            ["--ann", ws["pose"], "--img_root", ws["img_root"],
+             "--max_steps", str(TR_POSE_STEPS), "--out", out,
+             "--device", "cuda"], timer=timer))
+        assert res["steps"] == TR_POSE_STEPS, text
+        for name in ("last.npz", "ema.npz"):
+            with np.load(os.path.join(out, name)) as ck:
+                assert "conv_out.weight" in ck.files, name
+        with open(os.path.join(out, "train_metrics.jsonl")) as f:
+            rows = [json.loads(ln) for ln in f]
+        assert rows and rows[-1]["step"] == TR_POSE_STEPS, rows
+        log("train", run="a_pose", model="fastpose", input="256x192",
+            heatmap="64x48", batch=32, optimizer="adam", persons=6 * TR_PER_VIEW,
+            **figures("pose", res, timer, wall, "crops", 32),
+            launches_b1_b4=0, card=card)
+
+        # (b) YOLOX-X: mosaic + mixup steps, then one no-aug L1 step.
+        out = os.path.join(tmp, "yolox")
+        res, timer, wall, text = run("yolox", lambda timer: train_yolox.main(
+            ["--ann", ws["det"], "--img_root", ws["img_root"],
+             "--depth", "1.33", "--width", "1.25", "--input_size", "640x640",
+             "--batch", "8", "--epochs", "2", "--no_aug_epochs", "1",
+             "--max_steps", str(TR_YOLOX_STEPS + 1), "--out", out,
+             "--device", "cuda"], timer=timer))
+        assert res["steps"] == TR_YOLOX_STEPS + 1, text
+        l1 = [a["l1"] for a in res["aux"]]
+        assert all(v == 0.0 for v in l1[:TR_YOLOX_STEPS]) and l1[-1] > 0, l1
+        fg = [a["num_fg"] for a in res["aux"]]
+        assert min(fg) >= 1, fg
+        for name in ("last.npz", "ema.npz"):
+            with np.load(os.path.join(out, name)) as ck:
+                assert "head.obj_preds.0.bias" in ck.files, name
+        log("train", run="b_yolox", model="yolox-x", input="640x640",
+            batch=8, optimizer="sgd", mosaic_mixup_steps=TR_YOLOX_STEPS,
+            l1_steps=1, l1_last=f"{l1[-1]:.4f}",
+            num_fg=",".join(f"{v:.0f}" for v in fg),
+            **figures("yolox", res, timer, wall, "img", 8),
+            launches_b1_b4=0, card=card)
+
+    # (c) HybrIK at its input size, theta through the analytic IK.
+    imgs = [read_image(os.path.join(IMAGE_FIXTURES, "views",
+                                    f"Camera0{v}.jpg")) for v in range(6)]
+    rng = np.random.default_rng(3)
+    net = Simple3DPoseSMPLCam(width_dim=64, height_dim=64)
+    T.flax_init(net, torch.Generator().manual_seed(0))
+    net = net.to(dev)
+    state = T.init_train_state(net, T.Optimizer(
+        "adam", 1e-3, list(net.parameters())))
+    step = T.make_hybrik_train_step(assets=synthetic_smpl("smpl",
+                                                          device=dev))
+
+    def hybrik(timer):
+        t0 = time.time()
+        losses, auxes = [], []
+        for _ in range(TR_HYBRIK_STEPS):
+            with timer.time("data"):
+                batch = T.batch_to(_hybrik_batch(rng, imgs, TR_HYBRIK_BATCH),
+                                   dev)
+            with timer.device("step", dev):
+                loss, aux = step(state, batch)
+            losses.append(loss)
+            auxes.append(aux)
+        return {"steps": TR_HYBRIK_STEPS,
+                "losses": [float(v) for v in losses],
+                "aux": [{k: float(v) for k, v in a.items()} for a in auxes],
+                "seconds": time.time() - t0}
+    res, timer, wall, _ = run("hybrik", hybrik)
+    theta = [a["loss_theta"] for a in res["aux"]]
+    assert np.isfinite(theta).all(), theta
+    log("train", run="c_hybrik", input="256x256", heatmap="64x64",
+        batch=TR_HYBRIK_BATCH, optimizer="adam",
+        loss_theta_last=f"{theta[-1]:.6f}",
+        **figures("hybrik", res, timer, wall, "crops", TR_HYBRIK_BATCH),
+        launches_b1_b4=0, card=card)
+    del state, net, step
+
+    # (d) one SGD step on the card against the CPU, same weights.
+    gen = torch.Generator().manual_seed(4)
+    rng = np.random.default_rng(4)
+    fp = T.flax_init(FastPose(17), gen)
+    n, hw = 8, (128, 96)
+    pose_batch = {
+        "image": torch.from_numpy(rng.uniform(0, 1, (n, *hw, 3)).astype(
+            np.float32)),
+        "target": torch.from_numpy((rng.uniform(0, 1, (
+            n, hw[0] // 4, hw[1] // 4, 17)) ** 8).astype(np.float32)),
+        "target_weight": torch.ones(n, 17)}
+    log("train", run="d_check", **_card_vs_cpu(
+        "fastpose_128x96_b8", fp, pose_batch, T.make_pose_train_step, dev),
+        card=card)
+    yx = T.flax_init(YOLOX(1, 0.33, 0.25, train_outputs=True), gen)
+    n, hw = 4, (128, 128)
+    labels = np.zeros((n, 20, 5), np.float32)
+    for i in range(n):
+        labels[i, :3] = np.concatenate(
+            [np.zeros((3, 1)), rng.uniform(30, 100, (3, 2)),
+             rng.uniform(15, 50, (3, 2))], 1)
+    det_batch = {"image": torch.from_numpy(rng.uniform(
+        0, 255, (n, *hw, 3)).astype(np.float32)),
+        "labels": torch.from_numpy(labels)}
+    log("train", run="d_check", **_card_vs_cpu(
+        "yolox_s033_w025_128_b4", yx, det_batch,
+        lambda: T.make_yolox_train_step(hw), dev), card=card)
+
+    # (e) the host routines against OpenCV's recorded results.
+    spec = importlib.util.spec_from_file_location(
+        "make_imgproc_fixtures",
+        os.path.join(ROOT, "tools", "make_imgproc_fixtures.py"))
+    fx = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fx)
+    fix = os.path.join(ROOT, "tests", "fixtures", "imgproc")
+    with open(os.path.join(fix, "golden.json")) as f:
+        golden = json.load(f)
+    bounded = np.load(os.path.join(fix, "bounded.npz"))
+    ms = []
+    for case in golden["cases"]:
+        t0 = time.perf_counter()
+        out = fx.run_port(case)
+        ms.append(f"{case['name']}:{(time.perf_counter() - t0) * 1e3:.2f}")
+        if case.get("bounded"):
+            ref = bounded[case["name"]]
+            assert fx.sha(ref) == case["sha256"], case["name"]
+            ulp = np.spacing(np.float32(np.abs(ref).max()))
+            assert np.abs(out - ref).max() <= ulp, case["name"]
+        else:
+            assert fx.sha(out) == case["sha256"], case["name"]
+    log("train", run="e_imgproc", cases=len(golden["cases"]),
+        opencv=golden["opencv"], bitwise=sum(
+            not c.get("bounded") for c in golden["cases"]),
+        bounded_1ulp=sum(bool(c.get("bounded")) for c in golden["cases"]),
+        ms=",".join(ms))
+    log("train", seconds=f"{time.perf_counter() - t_phase:.1f}",
+        launches_b1_b4=0, card=card)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3274,6 +3623,7 @@ def main() -> int:
     keypoints_phase(dev, path, kp_weights)
     overlay_phase(dev, path)
     stream_phase(dev, path, kp_weights)
+    train_phase(dev, path)
     # Every kernel's launches summed over the fit paths.
     for name in kernels:
         kernels[name]["launches"] = sum(p.get(name, 0) for p in path.values())

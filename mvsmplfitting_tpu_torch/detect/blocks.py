@@ -5,8 +5,9 @@ The sub-modules carry the names of the reference's torch modules
 (`yolox/models/network_blocks.py`, AlphaPose's `SE_Resnet.py`,
 `SE_module.py`, `DUC.py`, `ShuffleResnet.py`), so that a reference
 `state_dict` loads with `load_state_dict`; JAX's `detect/convert.py` is
-the map from those names to its flax trees.  Every BatchNorm runs in
-inference mode with eps 1e-5, as JAX's (`blocks.py:26-30`).
+the map from those names to its flax trees.  Every BatchNorm is
+`BatchNorm2d` with eps 1e-5, as JAX's (`blocks.py:19-30`): in eval mode
+`nn.BatchNorm2d` itself, in train mode flax's update.
 """
 
 from __future__ import annotations
@@ -18,6 +19,30 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """`nn.BatchNorm2d` whose train mode is flax's `BatchNorm` (JAX's
+    `blocks.py:batch_norm`, momentum 0.9): it normalizes by the batch
+    statistics and moves `running_mean` and `running_var` 0.1 of the way
+    to the batch mean and the BIASED batch variance (`nn.BatchNorm2d`
+    folds in the unbiased one).  Eval mode, the state-dict names and
+    `num_batches_tracked` are `nn.BatchNorm2d`'s."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            # flax's "fast variance": E[x^2] - E[x]^2, floored at 0.
+            mean = x.mean(dim=(0, 2, 3))
+            var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean,
+                                  0.0)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True,
+                            0.0, self.eps)
 
 
 def activation(name: str) -> nn.Module:
@@ -39,7 +64,7 @@ class BaseConv(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, ksize, stride, (ksize - 1) // 2,
                               groups=groups, bias=bias)
-        self.bn = nn.BatchNorm2d(cout, eps=BN_EPS)
+        self.bn = BatchNorm2d(cout, eps=BN_EPS)
         self.act = activation(act)
 
     def forward(self, x):
@@ -173,7 +198,7 @@ class ResBottleneck(nn.Module):
                  dcn_modulated: bool = False, deformable_groups: int = 1):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes, eps=BN_EPS)
+        self.bn1 = BatchNorm2d(planes, eps=BN_EPS)
         self.dcn = dcn
         self.dcn_modulated = dcn_modulated
         self.deformable_groups = deformable_groups
@@ -193,13 +218,13 @@ class ResBottleneck(nn.Module):
                           bias=False))
         else:
             self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes, eps=BN_EPS)
+        self.bn2 = BatchNorm2d(planes, eps=BN_EPS)
         self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(planes * 4, eps=BN_EPS)
+        self.bn3 = BatchNorm2d(planes * 4, eps=BN_EPS)
         self.se = SELayer(planes * 4) if se else None
         self.downsample = (nn.Sequential(
             nn.Conv2d(inplanes, planes * 4, 1, stride, bias=False),
-            nn.BatchNorm2d(planes * 4, eps=BN_EPS)) if downsample else None)
+            BatchNorm2d(planes * 4, eps=BN_EPS)) if downsample else None)
 
     def forward(self, x):
         out = F.relu(self.bn1(self.conv1(x)))
@@ -234,7 +259,7 @@ class ResNetBackbone(nn.Module):
                  dcn_modulated: bool = False, deformable_groups: int = 1):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64, eps=BN_EPS)
+        self.bn1 = BatchNorm2d(64, eps=BN_EPS)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
         inplanes = 64
         for s, (planes, stride, blocks) in enumerate(
@@ -274,7 +299,7 @@ class DUC(nn.Module):
     def __init__(self, inplanes: int, planes: int, upscale_factor: int = 2):
         super().__init__()
         self.conv = nn.Conv2d(inplanes, planes, 3, padding=1, bias=False)
-        self.bn = nn.BatchNorm2d(planes, eps=BN_EPS)
+        self.bn = BatchNorm2d(planes, eps=BN_EPS)
         self.relu = nn.ReLU()
         self.pixel_shuffle = nn.PixelShuffle(upscale_factor)
 

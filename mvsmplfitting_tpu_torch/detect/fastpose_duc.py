@@ -17,7 +17,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from .blocks import BN_EPS
+from .blocks import BN_EPS, BatchNorm2d
 from .fastpose import SEResnet
 from .simplepose import ResNet
 
@@ -28,9 +28,9 @@ def duc_stage(inplanes: int, outplanes: int, num_conv: int) -> nn.Sequential:
     layers = [nn.PixelShuffle(2)]
     for _ in range(num_conv - 1):
         layers += [nn.Conv2d(mid, mid, 3, padding=1, bias=False),
-                   nn.BatchNorm2d(mid, eps=BN_EPS), nn.ReLU()]
+                   BatchNorm2d(mid, eps=BN_EPS), nn.ReLU()]
     layers += [nn.Conv2d(mid, outplanes, 3, padding=1, bias=False),
-               nn.BatchNorm2d(outplanes, eps=BN_EPS), nn.ReLU()]
+               BatchNorm2d(outplanes, eps=BN_EPS), nn.ReLU()]
     return nn.Sequential(*layers)
 
 

@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .blocks import BN_EPS
+from .blocks import BN_EPS, BatchNorm2d
 
 
 def hard_link(layer: int, base_ch: int, growth_rate: int,
@@ -54,7 +54,7 @@ class ConvLayer(nn.Sequential):
         super().__init__()
         self.add_module("conv", nn.Conv2d(cin, cout, kernel, stride,
                                           kernel // 2, bias=False))
-        self.add_module("norm", nn.BatchNorm2d(cout, eps=BN_EPS))
+        self.add_module("norm", BatchNorm2d(cout, eps=BN_EPS))
         self.add_module("relu", nn.ReLU())
 
 

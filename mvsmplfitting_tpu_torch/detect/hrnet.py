@@ -22,13 +22,13 @@ from typing import Sequence
 import torch.nn.functional as F
 from torch import nn
 
-from .blocks import BN_EPS, ResBottleneck
+from .blocks import BN_EPS, BatchNorm2d, ResBottleneck
 
 
 def conv_bn(cin: int, cout: int, k: int, stride: int, relu: bool
             ) -> nn.Sequential:
     layers = [nn.Conv2d(cin, cout, k, stride, k // 2, bias=False),
-              nn.BatchNorm2d(cout, eps=BN_EPS)]
+              BatchNorm2d(cout, eps=BN_EPS)]
     if relu:
         layers.append(nn.ReLU())
     return nn.Sequential(*layers)
@@ -40,9 +40,9 @@ class BasicBlock(nn.Module):
     def __init__(self, planes: int):
         super().__init__()
         self.conv1 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes, eps=BN_EPS)
+        self.bn1 = BatchNorm2d(planes, eps=BN_EPS)
         self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes, eps=BN_EPS)
+        self.bn2 = BatchNorm2d(planes, eps=BN_EPS)
 
     def forward(self, x):
         out = F.relu(self.bn1(self.conv1(x)))
@@ -68,7 +68,7 @@ class HRModule(nn.Module):
                 if j > i:
                     row.append(nn.Sequential(
                         nn.Conv2d(channels[j], channels[i], 1, bias=False),
-                        nn.BatchNorm2d(channels[i], eps=BN_EPS),
+                        BatchNorm2d(channels[i], eps=BN_EPS),
                         nn.Upsample(scale_factor=2 ** (j - i),
                                     mode="nearest")))
                 elif j < i:
@@ -101,9 +101,9 @@ class PoseHRNet(nn.Module):
         w = width
         chans = [(w, 2 * w), (w, 2 * w, 4 * w), (w, 2 * w, 4 * w, 8 * w)]
         self.conv1 = nn.Conv2d(3, 64, 3, 2, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(64, eps=BN_EPS)
+        self.bn1 = BatchNorm2d(64, eps=BN_EPS)
         self.conv2 = nn.Conv2d(64, 64, 3, 2, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(64, eps=BN_EPS)
+        self.bn2 = BatchNorm2d(64, eps=BN_EPS)
         self.layer1 = nn.Sequential(*[
             ResBottleneck(64 if b == 0 else 256, 64, downsample=b == 0)
             for b in range(4)])

@@ -26,7 +26,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from .blocks import BN_EPS
+from .blocks import BN_EPS, BatchNorm2d
 from .simplepose import ResNet
 
 
@@ -48,7 +48,7 @@ class Simple3DPoseSMPLCam(nn.Module):
         layers, cin = [], 2048
         for f in deconv_filters:
             layers += [nn.ConvTranspose2d(cin, f, 4, 2, 1, bias=False),
-                       nn.BatchNorm2d(f, eps=BN_EPS), nn.ReLU()]
+                       BatchNorm2d(f, eps=BN_EPS), nn.ReLU()]
             cin = f
         self.deconv_layers = nn.Sequential(*layers)
         self.final_layer = nn.Conv2d(cin, num_joints * depth_dim, 1)

@@ -10,7 +10,7 @@ from typing import Sequence
 
 from torch import nn
 
-from .blocks import BN_EPS, ResNetBackbone
+from .blocks import BN_EPS, BatchNorm2d, ResNetBackbone
 
 
 class ResNet(ResNetBackbone):
@@ -29,7 +29,7 @@ class SimplePose(nn.Module):
         layers, cin = [], 2048
         for f in deconv_filters:
             layers += [nn.ConvTranspose2d(cin, f, 4, 2, 1, bias=False),
-                       nn.BatchNorm2d(f, eps=BN_EPS), nn.ReLU()]
+                       BatchNorm2d(f, eps=BN_EPS), nn.ReLU()]
             cin = f
         self.deconv_layers = nn.Sequential(*layers)
         self.final_layer = nn.Conv2d(cin, num_joints, 1)

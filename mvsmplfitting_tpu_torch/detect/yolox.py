@@ -115,34 +115,45 @@ class YOLOXHead(nn.Module):
             self.reg_preds.append(nn.Conv2d(w(256), 4, 1))
             self.obj_preds.append(nn.Conv2d(w(256), 1, 1))
 
-    def forward(self, feats) -> torch.Tensor:
+    def forward(self, feats, logits: bool = False) -> torch.Tensor:
         """Raw predictions (N, anchors, 5 + C), obj and cls through the
-        sigmoid; anchors run level by level, row-major in each."""
+        sigmoid (left as logits with `logits`, JAX's `apply_sigmoid=False`);
+        anchors run level by level, row-major in each."""
+        act = (lambda t: t) if logits else torch.sigmoid
         outs = []
         for k, f in enumerate(feats):
             x = self.stems[k](f)
             cls = self.cls_preds[k](self.cls_convs[k](x))
             r = self.reg_convs[k](x)
             out = torch.cat([self.reg_preds[k](r),
-                             torch.sigmoid(self.obj_preds[k](r)),
-                             torch.sigmoid(cls)], dim=1)
+                             act(self.obj_preds[k](r)),
+                             act(cls)], dim=1)
             outs.append(out.flatten(2))
         return torch.cat(outs, dim=2).transpose(1, 2)
 
 
 class YOLOX(nn.Module):
     """The full detector: (N, 3, H, W) letterboxed BGR 0-255 ->
-    decoded (N, anchors, 5 + C) center-xywh boxes, obj, cls."""
+    decoded (N, anchors, 5 + C) center-xywh boxes, obj, cls.
+
+    With `train_outputs` (an attribute; the same weights either way) obj
+    and cls stay logits and the call returns `(decoded, raw[..., :4])`,
+    the pair `yolox_loss.yolox_losses` takes (JAX's
+    `YOLOX(train_outputs=True)`, `detect/yolox.py:132-156`)."""
 
     def __init__(self, num_classes: int = 1, depth_mul: float = 1.33,
-                 width_mul: float = 1.25):
+                 width_mul: float = 1.25, train_outputs: bool = False):
         super().__init__()
         self.backbone = YOLOPAFPN(depth_mul, width_mul)
         self.head = YOLOXHead(num_classes, width_mul)
+        self.train_outputs = train_outputs
 
     def forward(self, x):
-        raw = self.head(self.backbone(x))
-        return decode_outputs(raw, tuple(x.shape[-2:]))
+        raw = self.head(self.backbone(x), logits=self.train_outputs)
+        decoded = decode_outputs(raw, tuple(x.shape[-2:]))
+        if self.train_outputs:
+            return decoded, raw[..., :4]
+        return decoded
 
 
 def decode_outputs(raw: torch.Tensor, input_hw: Tuple[int, int],
