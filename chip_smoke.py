@@ -25,14 +25,17 @@ Phases (each prints one line; any failure exits non-zero):
      launch counters reset just before and read just after;
   6. [sdf] the three voxelizer kernels on two posed synthetic bodies
      (VPoser z ~ N(0, 0.8)), normalized as `person_grids` does:
-     at G=64 and G=128 both against the plain `sdf_grid` on the card
-     (the same inside set, phi within atol 1e-5, voxels that differ
-     bitwise counted) and the two-phase result bitwise equal to the
-     brute force; then the eight-body shape that [collide] voxelizes
-     (one launch, G=128), two-phase bitwise equal to brute force; per
-     shape the device times per call of phase A, phase B and the whole
-     two-phase wrapper, the admitted pairs per voxel, the phase-B groups
-     and their visits, and bounds from the pairs each kernel evaluates;
+     at G=64 and G=128 the brute force bitwise equal to the plain
+     `sdf_grid` on the card and the two-phase result bitwise equal to
+     the brute force; then the eight-body shape that [collide] voxelizes
+     (one launch, G=128), two-phase bitwise equal to brute force; each
+     kernel's work list holding its inside voxels; per shape the device
+     times per call of the brute force's two passes and whole call, of
+     phase A, phase B and the whole two-phase wrapper, the pairs that
+     passed the brute force's pre-test, the admitted pairs per voxel,
+     the phase-B groups and their visits, and bounds from the pairs each
+     kernel evaluates (and the brute force's first design's, over all
+     pairs, as `bound_all_pairs_ms`);
   7. [collide] the single-person fit with the collision term
      (`batched_fit_frames`, coll weights (0, 0, 1000, 4500), G=128, 8
      frames, library defaults, max_iters=40, as the [fit] phase), then
@@ -423,25 +426,35 @@ def event_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
-def sdf_work(SK, tri: torch.Tensor, G: int, work=None):
+def sdf_work(SK, tri: torch.Tensor, G: int, work: dict, work3: dict):
     """(bytes, operations) per kernel for triangles (M, F, 9) at G, and
     the pairs each kernel evaluates: each input read once, each output
     written once; operations over the (voxel, triangle) pairs each
-    kernel evaluates: all of them for the brute force; for phase A the
-    per-face test (7 compares per face and row of 4 voxels) over the
-    faces of the chunks the brick mask admits, and the row form of the
-    crossing test (14 per face and row, 37 per voxel) over the (row,
-    face) pairs that pass it (the kernel's own count); for phase B the
-    distance over the chunks each group visited (the kernel's visit
-    counts) and the group's inside voxels; `work` is that of
-    `sdf_grid_fast_cuda`."""
+    kernel evaluates.  The brute force: what the row form of the crossing
+    needs for every pair, whatever the kernel's tile (14 per triangle and
+    (y, z) row, 5 per triangle and x, the other 32 of the 37 per voxel),
+    10 more per pair that passed its pre-test (the kernel's own count)
+    and the distance for every (inside voxel, triangle) pair;
+    `sdf_grid_all_pairs` is its first design's work (distance and
+    crossing for every pair).  Phase A: the per-face test (7 compares per
+    face and row of 4 voxels) over the faces of the chunks the brick mask
+    admits, and the row form of the crossing (14 per face and row, 37 per
+    voxel) over the (row, face) pairs that pass it (the kernel's own
+    count); phase B: the distance over the chunks each group visited
+    (the kernel's visit counts) and the group's inside voxels.  `work`
+    and `work3` are those of `sdf_grid_fast_cuda` and `sdf_grid_cuda`."""
     M, F = tri.shape[:2]
     N = G ** 3
-    out = {"sdf_grid": (4.0 * (tri.numel() + M * N),
-                        float(M * N * F * (SK.DIST_OPS + SK.CROSS_OPS)))}
-    pairs = {"sdf_grid": float(M * N * F)}
-    if work is None:
-        return out, pairs
+    io = 4.0 * (tri.numel() + M * N)
+    inside = float(work3["counts"][:M].sum())
+    passed = float(work3["counts"][M])
+    out = {"sdf_grid": (io, float(
+        M * F * (G * G * SK.CROSS_ROW_OPS + G * SK.CROSS_COLUMN_OPS
+                 + N * (SK.CROSS_VOXEL_OPS - SK.CROSS_COLUMN_OPS))
+        + passed * SK.CROSS_PASS_OPS + inside * F * SK.DIST_OPS)),
+           "sdf_grid_all_pairs": (io, float(M * N * F * (SK.DIST_OPS
+                                                         + SK.CROSS_OPS)))}
+    pairs = {"passed": passed}
     tb = work["tables"]
     nb, nc = tb.nb, tb.nc
     dev = tri.device
@@ -492,17 +505,29 @@ def posed_local(dev, n: int, seed: int):
 
 
 def sdf_times(SK, tri: torch.Tensor, G: int, reps: int) -> dict:
-    """Device ms per call of phase A, phase B and the whole wrapper
-    (tables and both kernels).  Phase B takes a fresh copy of phase A's
-    counts each call: its work counter must start at 0."""
+    """Device ms per call of the brute force's pass 1 (`b3_parity`), pass
+    2 (`b3_dist`) and both with their tables (`sdf_grid`), and of phase
+    A, phase B and the whole two-phase wrapper (tables and both kernels).
+    Phase B takes a fresh copy of phase A's counts each call: its work
+    counter must start at 0."""
     from mvsmplfitting_tpu_torch.ops import cuda_build
     cross_fn, dist_fn = SK.bind_fast(cuda_build.load("sdf_grid_fast"))
+    grid_fns = SK.bind_grid(cuda_build.load("sdf_grid"))
     stream = torch.cuda.current_stream(tri.device).cuda_stream
+    blocks = SK.dist_blocks(tri.device)
+    gt = SK.grid_tables(tri, G)
+    phi3, lst3, counts3 = SK.call_parity(grid_fns[0], gt, stream)
     tb = SK.cull_tables(tri, G)
     phi, lst, counts = SK.call_cross(cross_fn, tb, stream)
-    blocks = SK.dist_blocks(tri.device)
     fresh = [counts.clone() for _ in range(2 * reps + 1)]   # cuda_ms's calls
     return {
+        "b3_parity": cuda_ms(lambda: SK.call_parity(grid_fns[0], gt, stream),
+                             reps=reps, warmup=1),
+        "b3_dist": cuda_ms(lambda: SK.call_inside_dist(
+            grid_fns[1], gt, phi3, lst3, counts3, blocks, stream),
+            reps=reps, warmup=1),
+        "sdf_grid": cuda_ms(lambda: SK.call_grid(grid_fns, tri, G, stream),
+                            reps=reps, warmup=1),
         "sdf_cross": cuda_ms(lambda: SK.call_cross(cross_fn, tb, stream),
                              reps=reps, warmup=1),
         "sdf_dist": cuda_ms(lambda: SK.call_dist(dist_fn, tb, phi, lst,
@@ -513,53 +538,64 @@ def sdf_times(SK, tri: torch.Tensor, G: int, reps: int) -> dict:
                          warmup=1)}
 
 
+def sdf_check(SK, tri: torch.Tensor, G: int, what: str):
+    """Both voxelizers on tri at G: the two-phase result bitwise equal to
+    the brute force, and their work lists the same voxels, each once,
+    with every voxel of phi > 0 among them (a listed voxel on the surface
+    has phi 0).  Returns (phi, work3, work)."""
+    M, N = tri.shape[0], G ** 3
+    b3, work3 = SK.sdf_grid_cuda(tri, G, with_work=True)
+    b4, work = SK.sdf_grid_fast_cuda(tri, G, with_work=True)
+    torch.cuda.synchronize()
+    assert torch.equal(b4, b3), f"{what}: two-phase != brute force"
+    listed3 = torch.sort(torch.cat([
+        work3["work"][m, :int(work3["counts"][m])].long() + m * N
+        for m in range(M)])).values
+    n = int(work["counts"][0])
+    listed4 = work["work"][:n * SK.GROUP].long()
+    listed4 = torch.sort(listed4[listed4 >= 0]).values
+    assert torch.equal(listed3, listed4), f"{what}: B3 and B4a list " \
+        f"{listed3.numel()} and {listed4.numel()} voxels, not the same"
+    assert bool((listed3[1:] > listed3[:-1]).all()), f"{what}: listed twice"
+    positive = torch.nonzero(b3.reshape(-1) > 0).flatten()
+    assert bool(torch.isin(positive, listed3).all()), \
+        f"{what}: a voxel with phi > 0 is not listed"
+    return b3, work3, work
+
+
 def sdf_phase(dev, kernels: dict) -> None:
     """[sdf]: the voxelizer kernels against the plain version and each
     other, their device times and bounds (see the module docstring)."""
-    from mvsmplfitting_tpu_torch.ops import cuda_build
     from mvsmplfitting_tpu_torch.ops import sdf as S
     from mvsmplfitting_tpu_torch.ops import sdf_kernel as SK
 
     local, tri, faces = posed_local(dev, 2, seed=3)
-    grid_fn = SK.bind_grid(cuda_build.load("sdf_grid"))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-
     timing = {}
     for G in (G_CHECK, G_FIT):
-        b3 = SK.sdf_grid_cuda(tri, G)
-        b4, work = SK.sdf_grid_fast_cuda(tri, G, with_work=True)
-        torch.cuda.synchronize()
-        assert torch.equal(b4, b3), f"G={G}: two-phase != brute force"
+        b3, work3, work = sdf_check(SK, tri, G, f"G={G}")
         kept = []
         plain_ms = event_ms(lambda: kept.append(S.sdf_grid(local, faces, G)))
         plain = kept[0]
         inside = int((plain > 0).sum())
         assert inside > G, f"G={G}: only {inside} inside voxels"
-        assert torch.equal(b3 > 0, plain > 0), f"G={G}: inside sets differ"
         err = (b3 - plain).abs().max().item()
-        assert err <= 1e-5, f"G={G}: |phi - plain| = {err}"
         ndiff = int((b3 != plain).sum())
-        reps = 3 if G == G_FIT else 10
-        ms = sdf_times(SK, tri, G, reps)
-        ms["sdf_grid"] = cuda_ms(lambda: SK.call_grid(grid_fn, tri, G,
-                                                      stream),
-                                 reps=reps, warmup=1)
-        log_sdf(SK, tri, G, work, ms, inside=inside, b4_equals_b3="bitwise",
-                max_abs_err_vs_plain=f"{err:.3e}", voxels_not_bitwise=ndiff,
-                b3_ms=f"{ms['sdf_grid']:.4f}", plain_ms=f"{plain_ms:.1f}")
-        timing[G] = (ms, plain_ms, sdf_work(SK, tri, G, work)[0], err)
+        assert ndiff == 0, f"G={G}: {ndiff} voxels differ from plain ({err})"
+        ms = sdf_times(SK, tri, G, 3 if G == G_FIT else 10)
+        log_sdf(SK, tri, G, work, work3, ms, inside=inside,
+                b3_equals_plain="bitwise", b4_equals_b3="bitwise",
+                plain_ms=f"{plain_ms:.1f}")
+        timing[G] = (ms, plain_ms, sdf_work(SK, tri, G, work, work3)[0],
+                     err)
 
     # The shape [collide] voxelizes: eight bodies in one launch, G=128.
     _, tri8, _ = posed_local(dev, B_COLLIDE, seed=4)
-    b3 = SK.sdf_grid_cuda(tri8, G_FIT)
-    b4, work = SK.sdf_grid_fast_cuda(tri8, G_FIT, with_work=True)
-    torch.cuda.synchronize()
-    assert torch.equal(b4, b3), "8 bodies: two-phase != brute force"
+    b3, work3, work = sdf_check(SK, tri8, G_FIT, "8 bodies")
     inside = int((b3 > 0).sum())
     assert inside > B_COLLIDE * G_FIT, f"8 bodies: {inside} inside voxels"
-    log_sdf(SK, tri8, G_FIT, work, sdf_times(SK, tri8, G_FIT, 3),
+    log_sdf(SK, tri8, G_FIT, work, work3, sdf_times(SK, tri8, G_FIT, 3),
             inside=inside, b4_equals_b3="bitwise")
-    del b3, b4, work, tri8
+    del b3, work3, work, tri8
 
     ms, plain_ms, bounds, err = timing[G_FIT]   # the fits' grid size
     for name, label, line in (
@@ -575,16 +611,22 @@ def sdf_phase(dev, kernels: dict) -> None:
             bound_ms=bnd, bound_by=by, library_ms=None)
 
 
-def log_sdf(SK, tri: torch.Tensor, G: int, work: dict, ms: dict,
-            **extra) -> None:
-    """One [sdf] line: the shape, the work each phase evaluated, the
+def log_sdf(SK, tri: torch.Tensor, G: int, work: dict, work3: dict,
+            ms: dict, **extra) -> None:
+    """One [sdf] line: the shape, the work each kernel evaluated, the
     device times and the bounds."""
-    work_by, pairs = sdf_work(SK, tri, G, work)
+    work_by, pairs = sdf_work(SK, tri, G, work, work3)
+    all_pairs_ms = bound_ms(*work_by.pop("sdf_grid_all_pairs"))[0]
     bounds = {k: round(bound_ms(*v)[0], 5) for k, v in work_by.items()}
     M = tri.shape[0]
     n = int(work["counts"][0])
     lanes = int((work["work"][:n * SK.GROUP] >= 0).sum())
     log("sdf", G=G, meshes=M, faces=tri.shape[1], **extra,
+        b3_ms=f"{ms['sdf_grid']:.4f}", b3_parity_ms=f"{ms['b3_parity']:.4f}",
+        b3_dist_ms=f"{ms['b3_dist']:.4f}",
+        b3_share=f"{bounds['sdf_grid'] / ms['sdf_grid']:.3f}",
+        bound_all_pairs_ms=f"{all_pairs_ms:.4f}",
+        b3_pretest_passed_per_voxel=f"{pairs['passed'] / (M * G ** 3):.2f}",
         admitted_pairs_per_voxel=f"{pairs['sdf_cross'] / (M * G ** 3):.1f}",
         evaluated_pairs_per_voxel=f"{pairs['evaluated'] / (M * G ** 3):.2f}",
         groups=n, group_lanes_used=f"{lanes / max(1, n * SK.GROUP):.3f}",

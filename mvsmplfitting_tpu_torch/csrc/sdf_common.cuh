@@ -17,19 +17,23 @@
 //             + 26 compares + the running minimum
 //   crossing  sdf_pair_crossing  60 = 52 arithmetic (1 divide)
 //             + 7 compares + the count
-//   crossing, row form (sdf_cross_row + sdf_cross_voxel, the two-phase
-//             kernel): 14 per triangle and x-row of voxels, then 37 per
-//             voxel (27 arithmetic + 9 for the pre-test + the count),
-//             and 10 more (the divide, 3 products, 1 add, 5 compares)
-//             for the few pairs that pass the pre-test
-// ops/sdf_kernel.py holds them as DIST_OPS, CROSS_OPS, CROSS_ROW_OPS and
-// CROSS_VOXEL_OPS for the bounds that chip_smoke.py computes.
+//   crossing, row form (sdf_cross_row + sdf_cross_voxel, both kernels;
+//             the brute force splits sdf_cross_voxel in two,
+//             sdf_cross_pre + sdf_cross_exact, to count the pairs that
+//             pass the pre-test): 14 per triangle and x-row of voxels,
+//             then 37 per voxel (27 arithmetic + 9 for the pre-test +
+//             the count; 5 of them depend on the triangle and x only,
+//             and the brute force shares them between rows), and 10
+//             more (the divide, 3 products, 1 add, 5 compares) for the
+//             few pairs that pass the pre-test
+// ops/sdf_kernel.py holds them as DIST_OPS, CROSS_OPS, CROSS_ROW_OPS,
+// CROSS_VOXEL_OPS, CROSS_COLUMN_OPS and CROSS_PASS_OPS for the bounds
+// that chip_smoke.py computes.
 #pragma once
 
 #include "async_copy.cuh"
 
-constexpr int SDF_THREADS = 128;  // voxels per block, one per thread
-constexpr int SDF_CHUNK = 128;    // triangles staged per step (9 floats each)
+constexpr int SDF_THREADS = 128;  // threads per block of every SDF kernel
 constexpr float SDF_FAR_D2 = 1e6f;
 
 // Voxel-center coordinate -1 + (i + 0.5) * dx (dx = 2/(G-1) in fp32).
@@ -202,12 +206,51 @@ __device__ __forceinline__ int sdf_cross_voxel(const SdfCrossRow& r,
              : 0;
 }
 
-// Stage triangles [f0, f0 + nf) of one mesh into shared memory, all
-// threads of the block together (coalesced: consecutive threads read
-// consecutive floats).
-__device__ __forceinline__ void sdf_stage_chunk(float* s_tri,
-                                                const float* tri, int f0,
-                                                int nf) {
-  for (int i = threadIdx.x; i < nf * 9; i += SDF_THREADS)
-    s_tri[i] = tri[(long)f0 * 9 + i];
+// sdf_cross_voxel in two parts, for csrc/sdf_grid.cu: sdf_cross_pre
+// computes det and the numerators and runs the pre-test, sdf_cross_exact
+// finishes a pair that passed it.  The operations and their order are
+// those of sdf_cross_voxel, so sdf_cross_exact(sdf_cross_pre(...)) where
+// `pass` holds, and 0 elsewhere, is its result bit for bit.  A caller
+// can thus run the pre-test of several voxels, count the pairs that pass
+// and branch once for all of them.  Five of sdf_cross_pre's operations
+// depend on the triangle and px only (dxr * acz, dxr * acy, tvx, tvx *
+// abz, tvx * aby): a caller that holds voxels of one x in several rows
+// computes them once for those rows (the compiler merges the identical
+// operations).
+struct SdfCrossPre {
+  float det, un, vn, tn;
+  bool pass;
+};
+
+__device__ __forceinline__ SdfCrossPre sdf_cross_pre(const SdfCrossRow& r,
+                                                     float px, float dxr,
+                                                     float dyr, float dzr) {
+  SdfCrossPre q;
+  const float pvy = r.dzr_acx - dxr * r.acz;
+  const float pvz = dxr * r.acy - r.dyr_acx;
+  q.det = r.abx_pvx + r.aby * pvy + r.abz * pvz;
+  const float tvx = px - r.ax;
+  q.un = tvx * r.pvx + r.tvy * pvy + r.tvz * pvz;
+  const float qvy = r.tvz_abx - tvx * r.abz;
+  const float qvz = tvx * r.aby - r.tvy_abx;
+  q.vn = dxr * r.qvx + dyr * qvy + dzr * qvz;
+  q.tn = r.acx_qvx + r.acy * qvy + r.acz * qvz;
+  // U, V and T are those of sdf_cross_voxel: the product with
+  // copysign(1, det) negates exactly where det < 0 (and at det = -0,
+  // where D fails the test either way), in one multiply each.
+  const float D = fabsf(q.det), s = copysignf(1.0f, q.det);
+  const float U = q.un * s, V = q.vn * s, T = q.tn * s;
+  const float lo = -1e-6f * D, hi = D * 1.00001f;
+  q.pass = D > 1e-7f && U >= lo && V >= lo && T >= lo && U <= hi &&
+           U + V <= hi;
+  return q;
+}
+
+__device__ __forceinline__ int sdf_cross_exact(const SdfCrossPre& q) {
+  const float inv = 1.0f / q.det;  // q.pass implies |det| > 1e-7
+  const float u = q.un * inv, vv = q.vn * inv, tt = q.tn * inv;
+  return (u >= 0.0f && u <= 1.0f && vv >= 0.0f && u + vv <= 1.0f &&
+          tt >= 0.0f)
+             ? 1
+             : 0;
 }

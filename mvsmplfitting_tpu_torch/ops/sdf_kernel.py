@@ -33,14 +33,20 @@ GROUP = 8       # inside voxels per phase-B group (a warp, 4 lanes each)
 MAX_CHUNKS = 1024
 FAR = 1e4       # coordinate of the padding faces
 MARGIN = 1e-4   # slack on every cull bound, as in JAX
+# The brute force's shapes (csrc/sdf_grid.cu: B3_*).
+GRID_CHUNK = 64     # triangles per chunk
 # Operations per (voxel, triangle) pair, counted in csrc/sdf_common.cuh:
 # the distance, the crossing, and the crossing's row form (per triangle
-# and row of X_PER_THREAD voxels, then per voxel); and the compares of
-# phase A's per-face test, per face and row (csrc/sdf_grid_fast.cu).
+# and row of voxels; then per voxel, of which CROSS_COLUMN_OPS depend on
+# the triangle and x only; then per pair that passes the pre-test); and
+# the compares of phase A's per-face test, per face and row of
+# X_PER_THREAD voxels (csrc/sdf_grid_fast.cu).
 DIST_OPS = 116
 CROSS_OPS = 60
 CROSS_ROW_OPS = 14
 CROSS_VOXEL_OPS = 37
+CROSS_COLUMN_OPS = 5
+CROSS_PASS_OPS = 10
 FACE_TEST_OPS = 7
 X_PER_THREAD = 4
 
@@ -60,33 +66,101 @@ def _stream(device: torch.device):
 # Brute force (csrc/sdf_grid.cu).
 # ---------------------------------------------------------------------------
 
-def bind_grid(lib: ctypes.CDLL):
-    fn = lib.mvsf_sdf_grid
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+@dataclasses.dataclass
+class GridTables:
+    """The brute force's copies of triangles (M, F, 9), the last of nc
+    chunks of GRID_CHUNK padded with far degenerate triangles (no
+    crossing; d^2 > 1e6, no new minimum)."""
+
+    tria: torch.Tensor    # (M, nc*GRID_CHUNK, 12) a, b - a, c - a, 0, 0, 0
+    trib: torch.Tensor    # (M, nc*GRID_CHUNK, 9) a, b, c
+    G: int
+    nc: int
 
 
-def call_grid(fn, tri: torch.Tensor, grid_size: int, stream) -> torch.Tensor:
-    """Check tri (M, F, 9), allocate phi (M, G, G, G) and call `fn`."""
+def grid_tables(tri: torch.Tensor, grid_size: int) -> GridTables:
+    """The tables of `csrc/sdf_grid.cu` for triangles (M, F, 9), with
+    torch ops on their device (b - a and c - a are the same single fp32
+    subtractions as in `csrc/sdf_common.cuh`)."""
     _check_tri(tri)
     M, F = tri.shape[:2]
-    G = grid_size
-    phi = torch.empty((M, G, G, G), dtype=torch.float32, device=tri.device)
-    cuda_build.check(fn(tri.data_ptr(), M, F, G, voxel_step(G),
-                        phi.data_ptr(), stream), "sdf_grid kernel")
+    if grid_size ** 3 >= 2 ** 31:
+        raise ValueError("sdf_grid: too many voxels for int32 indices")
+    nc = max(1, -(-F // GRID_CHUNK))
+    far = torch.full((M, nc * GRID_CHUNK - F, 9), FAR, device=tri.device)
+    trib = torch.cat([tri, far], dim=1).contiguous()
+    a = trib[..., 0:3]
+    tria = torch.cat([a, trib[..., 3:6] - a, trib[..., 6:9] - a,
+                      torch.zeros_like(a)], dim=-1).contiguous()
+    return GridTables(tria=tria, trib=trib, G=grid_size, nc=nc)
+
+
+def bind_grid(lib: ctypes.CDLL):
+    """(pass 1, pass 2) C entry points with their argument types."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    parity = lib.mvsf_sdf_parity
+    parity.argtypes = [p] + [i] * 4 + [ctypes.c_float] + [p] * 4
+    parity.restype = ctypes.c_int
+    dist = lib.mvsf_sdf_inside_dist
+    dist.argtypes = [p] * 3 + [i] * 5 + [ctypes.c_float] + [p] * 2
+    dist.restype = ctypes.c_int
+    return parity, dist
+
+
+def call_parity(fn, tb: GridTables, stream
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Pass 1: (phi (M, G, G, G) with the outside voxels at 0, the work
+    lists (M, G^3) int32, mesh m's inside voxels (z G^2 + y G + x) first
+    in row m, counts (M + 1,) int64: the length of each list, then the
+    (voxel, triangle) pairs that passed the crossing's pre-test)."""
+    M = tb.tria.shape[0]
+    G = tb.G
+    dev = tb.tria.device
+    phi = torch.empty((M, G, G, G), dtype=torch.float32, device=dev)
+    work = torch.empty((M, G ** 3), dtype=torch.int32, device=dev)
+    counts = torch.zeros((M + 1,), dtype=torch.int64, device=dev)
+    cuda_build.check(fn(tb.tria.data_ptr(), M, tb.nc, G, GRID_CHUNK,
+                        voxel_step(G), phi.data_ptr(), work.data_ptr(),
+                        counts.data_ptr(), stream), "sdf_parity kernel")
+    return phi, work, counts
+
+
+def call_inside_dist(fn, tb: GridTables, phi: torch.Tensor,
+                     work: torch.Tensor, counts: torch.Tensor, blocks: int,
+                     stream) -> None:
+    """Pass 2 on `blocks` persistent blocks: fills phi at the listed
+    voxels."""
+    cuda_build.check(fn(tb.trib.data_ptr(), work.data_ptr(),
+                        counts.data_ptr(), tb.trib.shape[0], tb.nc, tb.G,
+                        GRID_CHUNK, blocks, voxel_step(tb.G),
+                        phi.data_ptr(), stream), "sdf_inside_dist kernel")
+
+
+def call_grid(fn, tri: torch.Tensor, grid_size: int, stream,
+              blocks: int = 0, with_work: bool = False):
+    """Both passes of `csrc/sdf_grid.cu` through `fn` = `bind_grid(lib)`
+    on triangles (M, F, 9): phi (M, G, G, G), and with `with_work` also
+    a dict of the work lists and counts (`call_parity`).  `blocks`: pass
+    2's persistent blocks (0: `dist_blocks` of the card)."""
+    parity, dist = fn
+    tb = grid_tables(tri, grid_size)
+    phi, work, counts = call_parity(parity, tb, stream)
+    call_inside_dist(dist, tb, phi, work, counts,
+                     blocks or dist_blocks(tri.device), stream)
+    if with_work:
+        return phi, dict(work=work, counts=counts)
     return phi
 
 
-def sdf_grid_cuda(tri: torch.Tensor, grid_size: int) -> torch.Tensor:
+def sdf_grid_cuda(tri: torch.Tensor, grid_size: int,
+                  with_work: bool = False):
     """Launch `csrc/sdf_grid.cu` on CUDA triangles (M, F, 9)."""
     if tri.device.type != "cuda":
         raise ValueError("sdf_grid_cuda: tri must be a CUDA tensor")
-    phi = call_grid(bind_grid(cuda_build.load("sdf_grid")), tri, grid_size,
-                    _stream(tri.device))
+    out = call_grid(bind_grid(cuda_build.load("sdf_grid")), tri, grid_size,
+                    _stream(tri.device), with_work=with_work)
     LAUNCHES["sdf_grid"] += int(tri.shape[0] > 0)
-    return phi
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,7 @@
 // 32 lanes must take part, as with a full mask on the card).  atomicAdd
 // is a std::atomic_ref add.  Blocks run one after another (over
 // blockIdx.y, then x), so `__shared__` arrays become function statics.
+// gridDim is the launch's grid.
 // The kernel launch `k<<<grid, block, smem, stream>>>(args)` is
 // rewritten by the test into `emu_launch(grid, block, smem, [&] {
 // k(args); })`, and a dynamic shared array `extern __shared__ T name[];`
@@ -35,6 +36,7 @@ using std::min;
 #define __global__
 #define __device__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #define __shared__ static
 #define __restrict__
 #define __launch_bounds__(...)
@@ -58,6 +60,7 @@ struct emu_warp_state {
 
 inline thread_local emu_dim3 threadIdx;
 inline emu_dim3 blockIdx;
+inline emu_dim3 gridDim;
 inline std::barrier<>* emu_block_barrier = nullptr;
 inline thread_local emu_warp_state* emu_warp = nullptr;
 inline std::atomic<int> emu_or_acc{0};
@@ -116,6 +119,10 @@ inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int atomicAdd(int* p, int v) {
   return std::atomic_ref<int>(*p).fetch_add(v);
 }
+inline unsigned long long atomicAdd(unsigned long long* p,
+                                    unsigned long long v) {
+  return std::atomic_ref<unsigned long long>(*p).fetch_add(v);
+}
 
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -132,6 +139,9 @@ template <class F>
 void emu_launch(dim3 grid, int block, int smem_bytes, F body) {
   std::vector<float4> dynamic_smem((smem_bytes + 15) / 16 + 1);
   emu_dynamic_smem = dynamic_smem.data();
+  gridDim.x = (int)grid.x;
+  gridDim.y = (int)grid.y;
+  gridDim.z = (int)grid.z;
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx = 0; bx < grid.x; ++bx) {
       blockIdx.x = (int)bx;

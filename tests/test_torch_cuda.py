@@ -105,15 +105,15 @@ def test_cuda_tensors_never_take_the_plain_path(cuda_device, monkeypatch):
 
 @pytest.mark.cuda
 def test_sdf_kernels_on_card(cuda_device):
-    """Both voxelizers on two posed bodies at G=32 (one launch per kernel
-    for the pair): bitwise equal to each other and to the plain version,
-    which runs the same IEEE operations (`csrc/sdf_common.cuh`); the
-    two-phase one's work list holds exactly the inside voxels."""
+    """Both voxelizers on two posed bodies at G=32 (one launch per
+    wrapper for the pair): bitwise equal to each other and to the plain
+    version, which runs the same IEEE operations (`csrc/sdf_common.cuh`);
+    each one's work list holds exactly the inside voxels."""
     verts, faces = posed_bodies()
     verts, faces = verts.to(cuda_device), faces.to(cuda_device)
     tri = sdf_ops.triangles(verts, faces)
     before = dict(SK.LAUNCHES)
-    b3 = SK.sdf_grid_cuda(tri, 32)
+    b3, work3 = SK.sdf_grid_cuda(tri, 32, with_work=True)
     b4 = SK.sdf_grid_fast(verts, faces, 32)
     torch.cuda.synchronize()
     assert SK.LAUNCHES["sdf_grid"] == before["sdf_grid"] + 1
@@ -122,8 +122,7 @@ def test_sdf_kernels_on_card(cuda_device):
     plain = sdf_ops.sdf_grid(verts, faces, 32)
     assert int((plain > 0).sum()) > 100
     assert torch.equal(b4, b3)
-    assert torch.equal(b3 > 0, plain > 0)
-    torch.testing.assert_close(b3, plain, rtol=0.0, atol=1e-5)
+    assert torch.equal(b3, plain)
     # Phase A's work list holds each inside voxel once; every group of
     # phase B visited a chunk.
     _, work = SK.sdf_grid_fast_cuda(tri, 32, with_work=True)
@@ -135,6 +134,11 @@ def test_sdf_kernels_on_card(cuda_device):
     assert listed.numel() == int(inside.sum())
     assert torch.equal(inside.reshape(b3.shape), b3 > 0)
     assert bool((work["visits"][:n] > 0).all())
+    # The brute force's lists (mesh m's in row m) hold the same voxels.
+    listed3 = torch.cat([work3["work"][m, :int(work3["counts"][m])].long()
+                         + m * 32 ** 3 for m in range(tri.shape[0])])
+    assert torch.equal(torch.sort(listed3).values,
+                       torch.sort(listed).values)
 
 
 @pytest.mark.cuda
