@@ -255,6 +255,18 @@ Phases (each prints one line; any failure exits non-zero):
      batches are far from float64 on any device); (e) `data/imgproc.py`
      against OpenCV's recorded results (`tests/fixtures/imgproc`:
      sha256, one case within its one-ulp bound), with host ms per call;
+     (f) data parallelism (extends (a)-(e)): `TR_DP_WORLD` (2) gloo
+     ranks spawned on the card as [shard]'s (NCCL refuses two ranks on
+     one GPU), each holding its block of every global batch: one float64
+     SGD step of (d)'s two nets against this process's step on the whole
+     batch (rtol 1e-4 / atol 1e-6; every rank's parameters and buffers
+     bitwise equal), then `cli.train_pose` and `cli.train_yolox` as in
+     (a) and (b) on the world (every rank the same result, rank 0's
+     files only, the first global loss within 1e-3 of (a)'s / (b)'s);
+     per rank steps/s, host data seconds a step beside (a)'s / (b)'s,
+     all_reduce seconds a step for the gradients and for BatchNorm
+     (`parallel.COMM`, the device synchronized around each), the bytes
+     reduced, peak memory and no B1-B4 launch;
 then the total seconds, the card line, the kernels JSON line and the
 result line.  Each path's launch counters are set to 0 just before it
 and read just after; the JSON line gives every kernel's launches summed
@@ -3152,7 +3164,14 @@ TR_POSE_STEPS = 6      # [train] (a)
 TR_YOLOX_STEPS = 4     # [train] (b), mosaic and mixup; then one no-aug L1 step
 TR_HYBRIK_STEPS = 3    # [train] (c)
 TR_HYBRIK_BATCH = 16   # [train] (c): crops a step
-TR_RTOL, TR_ATOL = 1e-4, 1e-6    # [train] (d): card vs CPU, float64
+TR_RTOL, TR_ATOL = 1e-4, 1e-6    # [train] (d): card vs CPU, float64;
+                                 # (f): the world of 2 vs one process
+TR_POSE_ARGV = []      # [train] (a), (f): cli.train_pose's defaults
+TR_YOLOX_ARGV = ["--depth", "1.33", "--width", "1.25", "--input_size",
+                 "640x640", "--batch", "8", "--epochs", "2",
+                 "--no_aug_epochs", "1"]   # [train] (b), (f): YOLOX-X
+TR_DP_WORLD = 2        # [train] (f): gloo ranks sharing the card
+TR_DP_TIMEOUT_S = 600  # [train] (f): a collective that waits longer fails
 
 
 def _train_workspace(root: str, seed: int = 0) -> dict:
@@ -3285,9 +3304,7 @@ def train_phase(dev, launches: dict) -> None:
     from mvsmplfitting_tpu_torch.cli import train_pose, train_yolox
     from mvsmplfitting_tpu_torch.data.images import read_image
     from mvsmplfitting_tpu_torch.detect import train as T
-    from mvsmplfitting_tpu_torch.detect.fastpose import FastPose
     from mvsmplfitting_tpu_torch.detect.hybrik import Simple3DPoseSMPLCam
-    from mvsmplfitting_tpu_torch.detect.yolox import YOLOX
     from mvsmplfitting_tpu_torch.models.assets import synthetic_smpl
     from mvsmplfitting_tpu_torch.ops import joint_kernel as JK
     from mvsmplfitting_tpu_torch.ops import sdf_kernel as SK
@@ -3296,6 +3313,7 @@ def train_phase(dev, launches: dict) -> None:
 
     card = repr(card_line())
     t_phase = time.perf_counter()
+    one = {}               # (a)'s and (b)'s figures, for (f)
 
     def figures(tag, res, timer, wall, unit, per_step):
         steps = res["steps"]
@@ -3338,9 +3356,9 @@ def train_phase(dev, launches: dict) -> None:
         # (a) the pose trainer at its defaults.
         out = os.path.join(tmp, "pose")
         res, timer, wall, text = run("pose", lambda timer: train_pose.main(
-            ["--ann", ws["pose"], "--img_root", ws["img_root"],
-             "--max_steps", str(TR_POSE_STEPS), "--out", out,
-             "--device", "cuda"], timer=timer))
+            TR_POSE_ARGV + ["--ann", ws["pose"], "--img_root",
+                            ws["img_root"], "--max_steps", str(TR_POSE_STEPS),
+                            "--out", out, "--device", "cuda"], timer=timer))
         assert res["steps"] == TR_POSE_STEPS, text
         for name in ("last.npz", "ema.npz"):
             with np.load(os.path.join(out, name)) as ck:
@@ -3348,6 +3366,8 @@ def train_phase(dev, launches: dict) -> None:
         with open(os.path.join(out, "train_metrics.jsonl")) as f:
             rows = [json.loads(ln) for ln in f]
         assert rows and rows[-1]["step"] == TR_POSE_STEPS, rows
+        one["pose"] = dict(figures("pose", res, timer, wall, "crops", 32),
+                           first_loss=res["losses"][0])
         log("train", run="a_pose", model="fastpose", input="256x192",
             heatmap="64x48", batch=32, optimizer="adam", persons=6 * TR_PER_VIEW,
             **figures("pose", res, timer, wall, "crops", 32),
@@ -3356,11 +3376,9 @@ def train_phase(dev, launches: dict) -> None:
         # (b) YOLOX-X: mosaic + mixup steps, then one no-aug L1 step.
         out = os.path.join(tmp, "yolox")
         res, timer, wall, text = run("yolox", lambda timer: train_yolox.main(
-            ["--ann", ws["det"], "--img_root", ws["img_root"],
-             "--depth", "1.33", "--width", "1.25", "--input_size", "640x640",
-             "--batch", "8", "--epochs", "2", "--no_aug_epochs", "1",
-             "--max_steps", str(TR_YOLOX_STEPS + 1), "--out", out,
-             "--device", "cuda"], timer=timer))
+            TR_YOLOX_ARGV + ["--ann", ws["det"], "--img_root", ws["img_root"],
+                             "--max_steps", str(TR_YOLOX_STEPS + 1),
+                             "--out", out, "--device", "cuda"], timer=timer))
         assert res["steps"] == TR_YOLOX_STEPS + 1, text
         l1 = [a["l1"] for a in res["aux"]]
         assert all(v == 0.0 for v in l1[:TR_YOLOX_STEPS]) and l1[-1] > 0, l1
@@ -3369,6 +3387,8 @@ def train_phase(dev, launches: dict) -> None:
         for name in ("last.npz", "ema.npz"):
             with np.load(os.path.join(out, name)) as ck:
                 assert "head.obj_preds.0.bias" in ck.files, name
+        one["yolox"] = dict(figures("yolox", res, timer, wall, "img", 8),
+                            first_loss=res["losses"][0])
         log("train", run="b_yolox", model="yolox-x", input="640x640",
             batch=8, optimizer="sgd", mosaic_mixup_steps=TR_YOLOX_STEPS,
             l1_steps=1, l1_last=f"{l1[-1]:.4f}",
@@ -3414,32 +3434,9 @@ def train_phase(dev, launches: dict) -> None:
     del state, net, step
 
     # (d) one SGD step on the card against the CPU, same weights.
-    gen = torch.Generator().manual_seed(4)
-    rng = np.random.default_rng(4)
-    fp = T.flax_init(FastPose(17), gen)
-    n, hw = 8, (128, 96)
-    pose_batch = {
-        "image": torch.from_numpy(rng.uniform(0, 1, (n, *hw, 3)).astype(
-            np.float32)),
-        "target": torch.from_numpy((rng.uniform(0, 1, (
-            n, hw[0] // 4, hw[1] // 4, 17)) ** 8).astype(np.float32)),
-        "target_weight": torch.ones(n, 17)}
-    log("train", run="d_check", **_card_vs_cpu(
-        "fastpose_128x96_b8", fp, pose_batch, T.make_pose_train_step, dev),
-        card=card)
-    yx = T.flax_init(YOLOX(1, 0.33, 0.25, train_outputs=True), gen)
-    n, hw = 4, (128, 128)
-    labels = np.zeros((n, 20, 5), np.float32)
-    for i in range(n):
-        labels[i, :3] = np.concatenate(
-            [np.zeros((3, 1)), rng.uniform(30, 100, (3, 2)),
-             rng.uniform(15, 50, (3, 2))], 1)
-    det_batch = {"image": torch.from_numpy(rng.uniform(
-        0, 255, (n, *hw, 3)).astype(np.float32)),
-        "labels": torch.from_numpy(labels)}
-    log("train", run="d_check", **_card_vs_cpu(
-        "yolox_s033_w025_128_b4", yx, det_batch,
-        lambda: T.make_yolox_train_step(hw), dev), card=card)
+    for name, model, batch, make_step in _check_nets():
+        log("train", run="d_check", **_card_vs_cpu(
+            name, model, batch, make_step, dev), card=card)
 
     # (e) the host routines against OpenCV's recorded results.
     spec = importlib.util.spec_from_file_location(
@@ -3468,8 +3465,222 @@ def train_phase(dev, launches: dict) -> None:
             not c.get("bounded") for c in golden["cases"]),
         bounded_1ulp=sum(bool(c.get("bounded")) for c in golden["cases"]),
         ms=",".join(ms))
+    # (f) data parallelism: a world of TR_DP_WORLD ranks on the card.
+    train_dp_phase(dev, launches, one, card)
     log("train", seconds=f"{time.perf_counter() - t_phase:.1f}",
         launches_b1_b4=0, card=card)
+
+
+def _check_nets():
+    """(d)'s and (f)'s nets from seeds: [(name, model, batch, make_step
+    (**kw))]: a FastPose (128x96, batch 8) and a small YOLOX (0.33 /
+    0.25, 128x128, batch 4, three boxes an image)."""
+    from mvsmplfitting_tpu_torch.detect import train as T
+    from mvsmplfitting_tpu_torch.detect.fastpose import FastPose
+    from mvsmplfitting_tpu_torch.detect.yolox import YOLOX
+    gen = torch.Generator().manual_seed(4)
+    rng = np.random.default_rng(4)
+    fp = T.flax_init(FastPose(17), gen)
+    n, hw = 8, (128, 96)
+    pose_batch = {
+        "image": torch.from_numpy(rng.uniform(0, 1, (n, *hw, 3)).astype(
+            np.float32)),
+        "target": torch.from_numpy((rng.uniform(0, 1, (
+            n, hw[0] // 4, hw[1] // 4, 17)) ** 8).astype(np.float32)),
+        "target_weight": torch.ones(n, 17)}
+    yx = T.flax_init(YOLOX(1, 0.33, 0.25, train_outputs=True), gen)
+    n, dhw = 4, (128, 128)
+    labels = np.zeros((n, 20, 5), np.float32)
+    for i in range(n):
+        labels[i, :3] = np.concatenate(
+            [np.zeros((3, 1)), rng.uniform(30, 100, (3, 2)),
+             rng.uniform(15, 50, (3, 2))], 1)
+    det_batch = {"image": torch.from_numpy(rng.uniform(
+        0, 255, (n, *dhw, 3)).astype(np.float32)),
+        "labels": torch.from_numpy(labels)}
+    return [("fastpose_128x96_b8", fp, pose_batch, T.make_pose_train_step),
+            ("yolox_s033_w025_128_b4", yx, det_batch,
+             lambda **kw: T.make_yolox_train_step(dhw, **kw))]
+
+
+def _dp_sgd_step(model, batch, make_step, dev, group) -> dict:
+    """(d)'s SGD step in float64 on `dev`, data-parallel over `group`
+    (None: one process on the whole `batch`): the loss and the state
+    dict after it, on the CPU."""
+    import copy
+
+    from mvsmplfitting_tpu_torch.detect import train as T
+    from mvsmplfitting_tpu_torch.parallel import batch_rows
+    rows = batch_rows(batch["image"].shape[0], group)
+    m = copy.deepcopy(model).to(device=dev, dtype=torch.float64)
+    st = T.init_train_state(m, T.Optimizer("sgd", 1e-3, list(m.parameters())),
+                            group=group)
+    loss, _ = make_step(group=group)(st, {
+        k: v[rows].to(device=dev, dtype=torch.float64 if v.is_floating_point()
+                      else v.dtype) for k, v in batch.items()})
+    return {"loss": float(loss), "rows": batch["image"].shape[0],
+            "state": {k: v.detach().cpu()
+                      for k, v in m.state_dict().items()}}
+
+
+def train_dp_child(rank: int, world: int, port: int, device: str,
+                   ws: dict, out_dir: str) -> None:
+    """One spawned rank of [train] (f): a gloo world on one card; the
+    float64 SGD steps of `_check_nets`, then both CLIs at full width on
+    the world, with the collectives, host data seconds, peak memory and
+    B1-B4 launches of each; writes ``out_dir/rank<rank>.pt``."""
+    import contextlib
+    import datetime
+    import io
+    import tempfile
+
+    import torch.distributed as dist
+
+    from mvsmplfitting_tpu_torch import parallel as P
+    from mvsmplfitting_tpu_torch.cli import train_pose, train_yolox
+    from mvsmplfitting_tpu_torch.ops import joint_kernel as JK
+    from mvsmplfitting_tpu_torch.ops import sdf_kernel as SK
+    from mvsmplfitting_tpu_torch.ops import vposer_kernel as VK
+    from mvsmplfitting_tpu_torch.parallel.data_parallel import COMM
+    from mvsmplfitting_tpu_torch.utils.profiling import StageTimer
+    dev = P.init_distributed(f"localhost:{port}", world, rank,
+                             backend="gloo", device=torch.device(device),
+                             timeout=datetime.timedelta(
+                                 seconds=TR_DP_TIMEOUT_S))
+    group = dist.group.WORLD
+    got = {"steps": {name: _dp_sgd_step(model, batch, make_step, dev, group)
+                     for name, model, batch, make_step in _check_nets()}}
+    with tempfile.TemporaryDirectory(prefix="mvsf_train_dp_") as out:
+        for tag, main, argv in (
+                ("pose", train_pose.main, TR_POSE_ARGV + [
+                    "--ann", ws["pose"], "--max_steps", str(TR_POSE_STEPS)]),
+                ("yolox", train_yolox.main, TR_YOLOX_ARGV + [
+                    "--ann", ws["det"],
+                    "--max_steps", str(TR_YOLOX_STEPS + 1)])):
+            timer = StageTimer()
+            _sync(dev)
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            reset_launches(JK, VK, SK)
+            COMM.reset()
+            COMM.timed = True
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                res = main(argv + ["--img_root", ws["img_root"], "--out",
+                                   os.path.join(out, tag), "--device",
+                                   device], timer=timer)
+            _sync(dev)
+            wall = time.perf_counter() - t0
+            COMM.timed = False
+            t = timer.timings
+            got[tag] = dict(
+                res=res, wall=wall, data_s=sum(t.get("data", [])),
+                checkpoint_s=sum(t.get("checkpoint", [])),
+                device_s=timer.device_totals().get("step", 0.0),
+                comm_calls=dict(COMM.calls), comm_bytes=dict(COMM.bytes),
+                comm_s=dict(COMM.seconds), text=buf.getvalue(),
+                files=sorted(os.listdir(os.path.join(out, tag)))
+                if os.path.isdir(os.path.join(out, tag)) else [],
+                peak_gb=(torch.cuda.max_memory_allocated(dev) / 2**30
+                         if dev.type == "cuda" else 0.0),
+                launches=read_launches(JK, VK, SK))
+    torch.save(got, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def train_dp_phase(dev, launches: dict, one: dict, card: str) -> None:
+    """[train] (f): `TR_DP_WORLD` gloo ranks spawned on the card (NCCL
+    refuses two ranks on one GPU): the float64 SGD steps against this
+    process's step on the whole batch, then both CLIs at full width on
+    the world, against (a)'s and (b)'s one-process figures."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    want = {name: _dp_sgd_step(model, batch, make_step, dev, None)
+            for name, model, batch, make_step in _check_nets()}
+    with tempfile.TemporaryDirectory() as tmp:
+        ws = _train_workspace(tmp)
+        out_dir = os.path.join(tmp, "ranks")
+        os.makedirs(out_dir)
+        mp.spawn(train_dp_child, args=(TR_DP_WORLD, _free_port(), str(dev),
+                                       ws, out_dir),
+                 nprocs=TR_DP_WORLD, join=True)
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                            weights_only=False) for r in range(TR_DP_WORLD)]
+    spawn_s = time.perf_counter() - t0
+
+    # The float64 steps: every rank's bytes the same, the one-process
+    # step's numbers.
+    for name, w in want.items():
+        got = ranks[0]["steps"][name]
+        for r in ranks[1:]:
+            assert r["steps"][name]["loss"] == got["loss"], name
+            for k, v in got["state"].items():
+                assert torch.equal(r["steps"][name]["state"][k], v), (name, k)
+        assert abs(got["loss"] - w["loss"]) <= TR_RTOL * abs(w["loss"]), (
+            name, got["loss"], w["loss"])
+        worst = 0.0
+        for k, v in w["state"].items():
+            g = got["state"][k]
+            if not v.is_floating_point():
+                assert torch.equal(g, v), (name, k)
+                continue
+            torch.testing.assert_close(g, v, rtol=TR_RTOL, atol=TR_ATOL,
+                                       msg=f"{name} {k}")
+            worst = max(worst, float(((g - v).abs()
+                                      / (TR_ATOL + TR_RTOL * v.abs())).max()))
+        log("train", run="f_step", net=name, world=TR_DP_WORLD,
+            rows_per_rank=w["rows"] // TR_DP_WORLD,
+            loss_rel=f"{abs(got['loss'] - w['loss']) / abs(w['loss']):.3e}",
+            state_worst=f"{worst:.3e}", ranks_bitwise_equal=True,
+            card=card)
+
+    # The CLIs on the world.
+    total = {}
+    for tag, unit, per_step in (("pose", "crops", 32), ("yolox", "img", 8)):
+        res = [r[tag]["res"] for r in ranks]
+        for r in res[1:]:
+            assert r == res[0], (tag, "ranks returned different results")
+        steps, losses = res[0]["steps"], res[0]["losses"]
+        assert steps == (TR_POSE_STEPS if tag == "pose"
+                         else TR_YOLOX_STEPS + 1), (tag, steps)
+        assert np.isfinite(losses).all(), (tag, losses)
+        assert "data-parallel over 2 devices" in ranks[0][tag]["text"], tag
+        assert ranks[0][tag]["files"] == ["ema.npz", "last.npz",
+                                          "train_metrics.jsonl"], ranks[0]
+        assert all(r[tag]["files"] == [] or r is ranks[0] for r in ranks)
+        first_rel = abs(losses[0] - one[tag]["first_loss"]) / abs(
+            one[tag]["first_loss"])
+        assert first_rel <= 1e-3, (tag, losses[0], one[tag]["first_loss"])
+        for rank, r in enumerate(ranks):
+            f = r[tag]
+            assert not any(f["launches"].values()), (tag, rank, f["launches"])
+            for k, v in f["launches"].items():
+                total[k] = total.get(k, 0) + v
+            loop_s = f["wall"] - f["checkpoint_s"]
+            cs, cb, cc = f["comm_s"], f["comm_bytes"], f["comm_calls"]
+            log("train", run=f"f_{tag}", rank=rank, world=TR_DP_WORLD,
+                steps=steps, steps_per_s=f"{steps / loop_s:.3f}",
+                **{f"{unit}_per_s": f"{steps * per_step / loop_s:.2f}"},
+                host_data_s_per_step=f"{f['data_s'] / steps:.4f}",
+                one_process_host_data_s_per_step=one[tag][
+                    "host_data_s_per_step"],
+                one_process_steps_per_s=one[tag]["steps_per_s"],
+                device_s_per_step=f"{f['device_s'] / steps:.4f}",
+                allreduce_grads_s_per_step=f"{cs.get('grads', 0.0) / steps:.4f}",
+                allreduce_bn_s_per_step=f"{cs.get('bn', 0.0) / steps:.4f}",
+                allreduce_loss_s_per_step=f"{cs.get('loss', 0.0) / steps:.4f}",
+                grads_mb_per_step=f"{cb.get('grads', 0) / steps / 2**20:.1f}",
+                bn_mb_per_step=f"{cb.get('bn', 0) / steps / 2**20:.3f}",
+                bn_calls_per_step=cc.get("bn", 0) // steps,
+                peak_gb=f"{f['peak_gb']:.2f}",
+                first_loss_rel_vs_one_process=f"{first_rel:.3e}",
+                loss_first=f"{losses[0]:.6f}", loss_last=f"{losses[-1]:.6f}",
+                launches_b1_b4=0, card=card)
+    launches["train_dp"] = total
+    log("train", run="f", spawn_and_run_s=f"{spawn_s:.1f}", card=card)
 
 
 def main() -> int:

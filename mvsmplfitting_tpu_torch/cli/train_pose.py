@@ -6,12 +6,20 @@ COCO GT json -> host augmentation (`detect/augment.py`) -> Gaussian
 heatmap targets (or integral-regression targets) -> one train step a
 batch on `--device` (`detect/train.py`: forward in train mode, autograd,
 optax's optimizer, EMA) -> `last.npz` / `ema.npz` checkpoints in the
-reference's state-dict names and `train_metrics.jsonl`.  One device:
-JAX's data-parallel branch over a mesh is not ported.
+reference's state-dict names and `train_metrics.jsonl`.
+
+Under `torchrun` the step is data-parallel, one rank a card (JAX's
+``("batch",)`` mesh): `--batch` is the global batch, each rank loads and
+decodes its block of rows, and the step gives the one-device step's
+numbers on the global batch (`parallel/data_parallel.py`).  A world that
+does not divide `--batch` is refused.  Rank 0 alone writes files and
+logs; every rank returns the same result.
 
     python -m mvsmplfitting_tpu_torch.cli.train_pose \\
         --ann annotations/person_keypoints_train.json --img_root images \\
         --model fastpose --num_joints 17 --epochs 2 --batch 32 [--device cpu]
+    torchrun --nproc_per_node 4 -m mvsmplfitting_tpu_torch.cli.train_pose \\
+        --ann ... --img_root ... --batch 128
 """
 
 from __future__ import annotations
@@ -62,9 +70,10 @@ def parse_args(argv=None):
                    help="simplepose deconv filters, e.g. 256,256,256")
     p.add_argument("--conv_dim", type=int, default=0,
                    help="fastpose DUC conv dim override")
-    p.add_argument("--device", default="cuda",
-                   help="torch device (default cuda; 'cpu' runs the plain "
-                        "path on the CPU)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda, under torchrun "
+                        "cuda:LOCAL_RANK; 'cpu' runs the plain path on the "
+                        "CPU, over gloo under torchrun)")
     return p.parse_args(argv)
 
 
@@ -102,10 +111,12 @@ def main(argv=None, timer=None):
                                 lr_schedule, make_integral_train_step,
                                 make_pose_train_step)
     from ..detect.zoo import build_pose_model
-    from ..device import resolve_device
-    from ..utils.profiling import Metrics
+    from ..parallel.data_parallel import (init_data_parallel, rank,
+                                          world_size)
 
-    device = resolve_device(args.device)
+    device, group = init_data_parallel(args.device)
+    if world_size(group) > 1 and rank(group) == 0:
+        print(f"data-parallel over {world_size(group)} devices", flush=True)
     hw = tuple(int(v) for v in args.input_size.split("x"))
     hm = tuple(int(v) for v in args.heatmap_size.split("x"))
     integral = args.loss_type == "integral"
@@ -120,7 +131,8 @@ def main(argv=None, timer=None):
                               aug=aug_for_format(args.format,
                                                  args.num_joints, hw),
                               loss_type=("integral" if integral
-                                         else "heatmap"))
+                                         else "heatmap"),
+                              rank=rank(group), world=world_size(group))
     if len(ds) == 0:
         raise SystemExit("no full batches: fewer annotations than "
                          f"--batch {args.batch}")
@@ -140,27 +152,42 @@ def main(argv=None, timer=None):
                         total_epochs=args.epochs,
                         milestones=milestones, factor=args.lr_factor)
     tx = Optimizer(args.optimizer, sched, list(model.parameters()))
-    state = init_train_state(model, tx)
-    step_fn = (make_integral_train_step(norm_type=args.norm_type)
-               if integral else make_pose_train_step())
-
-    os.makedirs(args.out, exist_ok=True)
-    metrics = Metrics(os.path.join(args.out, "train_metrics.jsonl"))
-    return train_loop(args, ds, state, step_fn, device, metrics, timer,
+    state = init_train_state(model, tx, group=group)
+    step_fn = (make_integral_train_step(norm_type=args.norm_type,
+                                        group=group)
+               if integral else make_pose_train_step(group=group))
+    return train_loop(args, ds, state, step_fn, device, timer,
                       unit="crops", log_every=20)
 
 
-def train_loop(args, ds, state, step_fn, device, metrics, timer, unit: str,
+def open_metrics(args, group):
+    """`args.out` and its `train_metrics.jsonl` on rank 0; None on the
+    other ranks, which write nothing."""
+    from ..parallel.data_parallel import rank
+    from ..utils.profiling import Metrics
+    if rank(group) != 0:
+        return None
+    os.makedirs(args.out, exist_ok=True)
+    return Metrics(os.path.join(args.out, "train_metrics.jsonl"))
+
+
+def train_loop(args, ds, state, step_fn, device, timer, unit: str,
                log_every: int, per_epoch=None, on_epoch=None):
     """The epoch loop both training CLIs share: batches from `ds`, one
     `step_fn` each, a log line every `log_every` steps and at the last
     (`args.max_steps`), checkpoints after each epoch.  `per_epoch(epoch)`
     sets the epoch up and returns its step function (default `step_fn`);
-    `on_epoch(epoch, step, done)` runs after its checkpoints."""
+    `on_epoch(epoch, step, done)` runs after its checkpoints.  Data
+    parallel (`state.group`): the losses are global, the rates count the
+    global batch, rank 0 alone logs and writes, and the seconds are rank
+    0's, so that every rank returns the same result."""
     import contextlib
 
     from ..detect.train import batch_to, save_checkpoint
+    from ..parallel.data_parallel import broadcast_object, rank
 
+    lead = rank(state.group) == 0
+    metrics = open_metrics(args, state.group)
     step = 0
     losses, auxes = [], []
     t0 = time.time()
@@ -181,8 +208,8 @@ def train_loop(args, ds, state, step_fn, device, metrics, timer, unit: str,
             losses.append(loss)
             auxes.append(aux)
             step += 1
-            if step % log_every == 1 or (args.max_steps
-                                         and step >= args.max_steps):
+            if lead and (step % log_every == 1
+                         or (args.max_steps and step >= args.max_steps)):
                 loss = float(loss)
                 # JAX's logs read the schedule at the step count.
                 lr_now = state.optimizer.lr(step)
@@ -203,9 +230,11 @@ def train_loop(args, ds, state, step_fn, device, metrics, timer, unit: str,
                 break
         with (timer.time("checkpoint") if timer is not None
               else contextlib.nullcontext()):
-            save_checkpoint(os.path.join(args.out, "last.npz"),
-                            state.model.state_dict())
-            save_checkpoint(os.path.join(args.out, "ema.npz"), state.ema)
+            if lead:
+                save_checkpoint(os.path.join(args.out, "last.npz"),
+                                state.model.state_dict())
+                save_checkpoint(os.path.join(args.out, "ema.npz"),
+                                state.ema)
         done = bool(args.max_steps and step >= args.max_steps)
         if on_epoch is not None:
             with (timer.time("eval") if timer is not None
@@ -215,9 +244,10 @@ def train_loop(args, ds, state, step_fn, device, metrics, timer, unit: str,
             break
     losses = [float(v) for v in losses]
     auxes = [{k: float(v) for k, v in a.items()} for a in auxes]
-    print(f"done: {step} steps, checkpoints in {args.out}")
+    if lead:
+        print(f"done: {step} steps, checkpoints in {args.out}")
     return {"steps": step, "losses": losses, "aux": auxes,
-            "seconds": time.time() - t0}
+            "seconds": broadcast_object(time.time() - t0, state.group)}
 
 
 if __name__ == "__main__":

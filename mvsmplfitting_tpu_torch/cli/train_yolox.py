@@ -8,12 +8,18 @@ COCO instances json -> host mosaic / affine / mixup / HSV
 (`detect/augment.py`) -> one SimOTA train step a batch on `--device`
 (`detect/train.py` + `detect/yolox_loss.py`) -> EMA, `last.npz` /
 `ema.npz` in the reference's state-dict names, `train_metrics.jsonl`,
-and with `--val_ann` the EMA net's box mAP.  One device: JAX's
-data-parallel branch over a mesh is not ported.
+and with `--val_ann` the EMA net's box mAP.
+
+Under `torchrun` the step is data-parallel, as `cli/train_pose.py`'s:
+`--batch` is the global batch, SimOTA's foreground and gt counts are
+summed over the ranks, rank 0 alone writes files and validates, and
+every rank returns the same result.
 
     python -m mvsmplfitting_tpu_torch.cli.train_yolox \\
         --ann annotations/instances_train.json --img_root images \\
         --depth 0.33 --width 0.5 --input_size 640x640 --batch 8 [--device cpu]
+    torchrun --nproc_per_node 8 -m mvsmplfitting_tpu_torch.cli.train_yolox \\
+        --ann ... --img_root ... --batch 64
 """
 
 from __future__ import annotations
@@ -58,9 +64,10 @@ def parse_args(argv=None):
                    help="validation image root (default: --img_root)")
     p.add_argument("--eval_interval", type=int, default=10,
                    help="evaluate every N epochs (and at the end)")
-    p.add_argument("--device", default="cuda",
-                   help="torch device (default cuda; 'cpu' runs the plain "
-                        "path on the CPU)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda, under torchrun "
+                        "cuda:LOCAL_RANK; 'cpu' runs the plain path on the "
+                        "CPU, over gloo under torchrun)")
     return p.parse_args(argv)
 
 
@@ -141,17 +148,22 @@ def main(argv=None, timer=None):
     from ..detect.train import (Optimizer, flax_init, init_train_state,
                                 lr_schedule, make_yolox_train_step)
     from ..detect.yolox import YOLOX
-    from ..device import resolve_device
-    from ..utils.profiling import Metrics
-    from .train_pose import train_loop
+    from ..parallel.data_parallel import (broadcast_object,
+                                          init_data_parallel, rank,
+                                          world_size)
+    from .train_pose import open_metrics, train_loop
 
-    device = resolve_device(args.device)
+    device, group = init_data_parallel(args.device)
+    lead = rank(group) == 0
+    if world_size(group) > 1 and lead:
+        print(f"data-parallel over {world_size(group)} devices", flush=True)
     hw = tuple(int(v) for v in args.input_size.split("x"))
     ds = CocoDetTrainDataset(args.ann, args.img_root, hw,
                              batch_size=args.batch,
                              max_labels=args.max_labels,
                              seed=args.seed,
-                             enable_mixup=not args.no_mixup)
+                             enable_mixup=not args.no_mixup,
+                             rank=rank(group), world=world_size(group))
     if len(ds) == 0:
         raise SystemExit("no full batches: fewer annotated images "
                          f"than --batch {args.batch}")
@@ -168,17 +180,15 @@ def main(argv=None, timer=None):
                         min_lr_ratio=args.min_lr_ratio)
     tx = Optimizer("sgd", sched, list(model.parameters()),
                         weight_decay=args.weight_decay)
-    state = init_train_state(model, tx)
-    step_aug = make_yolox_train_step(hw, use_l1=False)
-    step_l1 = make_yolox_train_step(hw, use_l1=True)
+    state = init_train_state(model, tx, group=group)
+    step_aug = make_yolox_train_step(hw, use_l1=False, group=group)
+    step_l1 = make_yolox_train_step(hw, use_l1=True, group=group)
 
     def per_epoch(epoch):
         no_aug = epoch >= args.epochs - args.no_aug_epochs
         ds.mosaic = not no_aug
         return step_l1 if no_aug else step_aug
 
-    os.makedirs(args.out, exist_ok=True)
-    metrics = Metrics(os.path.join(args.out, "train_metrics.jsonl"))
     val_maps = []
 
     def on_epoch(epoch, step, done):
@@ -186,19 +196,22 @@ def main(argv=None, timer=None):
                 done or epoch == args.epochs - 1
                 or (args.eval_interval
                     and (epoch + 1) % args.eval_interval == 0)):
-            # The EMA net with the inference head, as the reference.
-            ema_model = copy.deepcopy(state.model)
-            ema_model.load_state_dict(state.ema)
-            ema_model.train_outputs = False
-            m = evaluate_detection(ema_model, args.val_ann,
-                                   args.val_img_root or args.img_root, hw,
-                                   device)
-            print(f"epoch {epoch} val box mAP(0.50:0.95) {m:.4f}",
-                  flush=True)
-            metrics.log(epoch=epoch, step=step, val_box_map=m)
-            val_maps.append(m)
+            m = None
+            if lead:
+                # The EMA net with the inference head, as the reference.
+                ema_model = copy.deepcopy(state.model)
+                ema_model.load_state_dict(state.ema)
+                ema_model.train_outputs = False
+                m = evaluate_detection(ema_model, args.val_ann,
+                                       args.val_img_root or args.img_root,
+                                       hw, device)
+                print(f"epoch {epoch} val box mAP(0.50:0.95) {m:.4f}",
+                      flush=True)
+                open_metrics(args, group).log(epoch=epoch, step=step,
+                                              val_box_map=m)
+            val_maps.append(broadcast_object(m, group))
 
-    out = train_loop(args, ds, state, step_aug, device, metrics, timer,
+    out = train_loop(args, ds, state, step_aug, device, timer,
                      unit="img", log_every=10, per_epoch=per_epoch,
                      on_epoch=on_epoch)
     out["val_box_map"] = val_maps

@@ -31,6 +31,7 @@ import os
 import struct
 import zlib
 from pathlib import Path
+from typing import Tuple
 
 import numpy as np
 
@@ -240,6 +241,47 @@ def read_image(path: str) -> np.ndarray:
     if data.startswith(PNG_SIGNATURE):
         return decode_png(data, path)
     raise ImageError(f"{path}: neither a JPEG nor a PNG file")
+
+
+def image_hw(path) -> Tuple[int, int]:
+    """(height, width) of the image `read_image` gives for `path`, from
+    the file's headers alone: a JPEG's SOF segment turned by its EXIF
+    orientation as the reader turns the pixels (5-8 swap the sides), a
+    PNG's IHDR.  Raises `ImageError` where no size is found."""
+    path = os.fspath(path)
+    with open(path, "rb") as f:
+        head = f.read(24)
+        if head.startswith(PNG_SIGNATURE) and head[12:16] == b"IHDR":
+            w, h = struct.unpack(">II", head[16:24])
+            return int(h), int(w)
+        if head[:2] != b"\xff\xd8":
+            raise ImageError(f"{path}: neither a JPEG nor a PNG file")
+        f.seek(2)
+        exif, size = None, None
+        while True:
+            marker = f.read(2)
+            if len(marker) < 2 or marker[0] != 0xFF:
+                break
+            code = marker[1]
+            if code == 0xFF:
+                f.seek(-1, os.SEEK_CUR)
+                continue
+            if code in (0xD8, 0x01) or 0xD0 <= code <= 0xD7:
+                continue
+            if code in (0xDA, 0xD9):
+                break
+            (length,) = struct.unpack(">H", f.read(2))
+            body = f.read(length - 2)
+            if code == 0xE1 and exif is None and body[:6] == b"Exif\0\0":
+                exif = body[6:]         # the first, as `_jpeg_exif` takes
+            elif (size is None and 0xC0 <= code <= 0xCF
+                  and code not in (0xC4, 0xC8, 0xCC)):
+                size = struct.unpack(">HH", body[1:5])
+    if size is None:
+        raise ImageError(f"{path}: no JPEG frame header")
+    orientation = exif_orientation(exif) if exif else 1
+    h, w = size
+    return (w, h) if orientation in (5, 6, 7, 8) else (h, w)
 
 
 # ---- JPEG writing ----------------------------------------------------------

@@ -30,6 +30,13 @@ YOLOX detection training (`yolox/data/datasets/mosaicdetection.py:
 
 Padded label tensors for `yolox_loss.yolox_losses` come out of
 ``labels_to_padded``.
+
+Every function that takes an image also takes a `ShapeOnly` in its
+place: it then makes every random draw it makes for an image of that
+shape, computes the labels and joints, and touches no pixel.  A
+data-parallel rank replays the other ranks' rows so, which keeps its
+generator in step with the one-process stream: no draw reads a pixel
+value, only image shapes, boxes and joints.
 """
 
 from __future__ import annotations
@@ -48,6 +55,20 @@ COCO17_FLIP_PAIRS: Tuple[Tuple[int, int], ...] = (
 # COCO upper-body joint ids (half-body split, SimpleTransform init).
 COCO17_UPPER_BODY_IDS: Tuple[int, ...] = (0, 1, 2, 3, 4, 5, 6, 7, 8,
                                           9, 10)
+
+
+class ShapeOnly:
+    """An image's shape without its pixels (see the module docstring);
+    the functions return a `ShapeOnly` where they would return an
+    image."""
+    __slots__ = ("shape",)
+
+    def __init__(self, shape):
+        self.shape = tuple(int(v) for v in shape)
+
+
+def _pixels(img) -> bool:
+    return not isinstance(img, ShapeOnly)
 
 
 # ---------------------------------------------------------------------------
@@ -215,15 +236,16 @@ def pose_train_sample(rng: np.random.Generator, img: np.ndarray,
            if rng.uniform() <= 0.6 else 0.0)
 
     if cfg.flip and rng.uniform() > 0.5:
-        img = np.ascontiguousarray(img[:, ::-1])
+        if _pixels(img):
+            img = np.ascontiguousarray(img[:, ::-1])
         joints, vis = flip_joints(joints, vis, W, cfg.flip_pairs)
         center = center.copy()
         center[0] = W - center[0] - 1.0
 
     in_h, in_w = cfg.input_hw
     trans = get_affine_transform(center, scale, rot, (in_w, in_h))
-    crop = warp_affine(np.asarray(img, np.float32), trans,
-                       (in_w, in_h))
+    crop = (warp_affine(np.asarray(img, np.float32), trans, (in_w, in_h))
+            if _pixels(img) else ShapeOnly((in_h, in_w, 3)))
     warped = apply_affine(joints, trans)
     joints_t = np.where((vis > 0)[:, None], warped, joints)
     return crop, joints_t.astype(np.float32), vis
@@ -263,18 +285,24 @@ def mosaic4(rng: np.random.Generator, images: Sequence[np.ndarray],
     input_h, input_w = input_hw
     yc = int(rng.uniform(0.5 * input_h, 1.5 * input_h))
     xc = int(rng.uniform(0.5 * input_w, 1.5 * input_w))
-    canvas = np.full((input_h * 2, input_w * 2, 3), 114.0, np.float32)
+    pixels = all(_pixels(im) for im in images)
+    canvas = (np.full((input_h * 2, input_w * 2, 3), 114.0, np.float32)
+              if pixels else ShapeOnly((input_h * 2, input_w * 2, 3)))
     out_labels: List[np.ndarray] = []
 
     for i, (img, labels) in enumerate(zip(images, labels_list)):
         h0, w0 = img.shape[:2]
         s = min(input_h / h0, input_w / w0)
-        img = imgproc.resize_linear(np.asarray(img, np.float32),
-                                    (int(w0 * s), int(h0 * s)))
-        h, w = img.shape[:2]
+        if pixels:
+            img = imgproc.resize_linear(np.asarray(img, np.float32),
+                                        (int(w0 * s), int(h0 * s)))
+            h, w = img.shape[:2]
+        else:
+            h, w = int(h0 * s), int(w0 * s)
         (lx1, ly1, lx2, ly2), (sx1, sy1, sx2, sy2) = mosaic_window(
             i, xc, yc, w, h, input_h, input_w)
-        canvas[ly1:ly2, lx1:lx2] = img[sy1:sy2, sx1:sx2]
+        if pixels:
+            canvas[ly1:ly2, lx1:lx2] = img[sy1:sy2, sx1:sx2]
 
         if labels.size:
             lab = np.asarray(labels, np.float32).copy()
@@ -335,8 +363,9 @@ def random_affine(rng: np.random.Generator, img: np.ndarray,
     T[1, 2] = rng.uniform(0.5 - translate, 0.5 + translate) * h
     M = T @ S @ R @ C
 
-    out = imgproc.warp_affine(np.asarray(img, np.float32), M[:2], (w, h),
-                              114.0)
+    out = (imgproc.warp_affine(np.asarray(img, np.float32), M[:2], (w, h),
+                               114.0)
+           if _pixels(img) else ShapeOnly((h, w, 3)))
     if targets.size:
         n = targets.shape[0]
         corners = targets[:, [0, 1, 2, 3, 0, 3, 2, 1]].reshape(n * 4, 2)
@@ -357,6 +386,8 @@ def augment_hsv(rng: np.random.Generator, img: np.ndarray,
     """HSV gain jitter (`data_augment.py:23-37`): hue shifted mod 180,
     sat/val scaled and clipped.  img float RGB in [0, 255]."""
     r = rng.uniform(-1, 1, 3) * [hgain, sgain, vgain] + 1
+    if not _pixels(img):
+        return img
     hsv = imgproc.rgb_to_hsv(np.asarray(img, np.float32) / 255.0)
     hsv[..., 0] = (hsv[..., 0] / 2.0 * r[0]) % 180.0 * 2.0  # cv2 H/2
     hsv[..., 1] = np.clip(hsv[..., 1] * r[1], 0, 1)
@@ -371,7 +402,8 @@ def mirror_boxes(rng: np.random.Generator, img: np.ndarray,
     """Horizontal mirror (`data_augment.py:180-186`)."""
     h, w = img.shape[:2]
     if rng.uniform() < prob:
-        img = np.ascontiguousarray(img[:, ::-1])
+        if _pixels(img):
+            img = np.ascontiguousarray(img[:, ::-1])
         boxes = boxes.copy()
         boxes[:, [0, 2]] = w - boxes[:, [2, 0]]
     return img, boxes
@@ -414,28 +446,32 @@ def mixup(rng: np.random.Generator, origin_img: np.ndarray,
     jit_factor = float(rng.uniform(*mixup_scale))
     flip = bool(rng.uniform() > 0.5)
     in_h, in_w = input_hw
+    pixels = _pixels(origin_img) and _pixels(cp_img)
 
-    cp_canvas = np.full((in_h, in_w, 3), 114.0, np.float32)
     h0, w0 = cp_img.shape[:2]
     r = min(in_h / h0, in_w / w0)
-    resized = imgproc.resize_linear(np.asarray(cp_img, np.float32),
-                                    (int(w0 * r), int(h0 * r)))
-    cp_canvas[: int(h0 * r), : int(w0 * r)] = resized
-    cp_canvas = imgproc.resize_linear(cp_canvas, (int(in_w * jit_factor),
-                                                  int(in_h * jit_factor)))
+    if pixels:
+        cp_canvas = np.full((in_h, in_w, 3), 114.0, np.float32)
+        resized = imgproc.resize_linear(np.asarray(cp_img, np.float32),
+                                        (int(w0 * r), int(h0 * r)))
+        cp_canvas[: int(h0 * r), : int(w0 * r)] = resized
+        cp_canvas = imgproc.resize_linear(
+            cp_canvas, (int(in_w * jit_factor), int(in_h * jit_factor)))
+        oh, ow = cp_canvas.shape[:2]
+    else:
+        oh, ow = int(in_h * jit_factor), int(in_w * jit_factor)
     r *= jit_factor
-    if flip:
+    if flip and pixels:
         cp_canvas = cp_canvas[:, ::-1]
 
-    oh, ow = cp_canvas.shape[:2]
     th, tw = origin_img.shape[:2]
-    padded = np.zeros((max(oh, th), max(ow, tw), 3), np.uint8)
-    padded[:oh, :ow] = cp_canvas            # uint8 truncation (quirk)
-    y_off = (int(rng.integers(0, padded.shape[0] - th))
-             if padded.shape[0] > th else 0)
-    x_off = (int(rng.integers(0, padded.shape[1] - tw))
-             if padded.shape[1] > tw else 0)
-    cropped = padded[y_off:y_off + th, x_off:x_off + tw]
+    ph, pw = max(oh, th), max(ow, tw)
+    y_off = int(rng.integers(0, ph - th)) if ph > th else 0
+    x_off = int(rng.integers(0, pw - tw)) if pw > tw else 0
+    if pixels:
+        padded = np.zeros((ph, pw, 3), np.uint8)
+        padded[:oh, :ow] = cp_canvas        # uint8 truncation (quirk)
+        cropped = padded[y_off:y_off + th, x_off:x_off + tw]
 
     lab = np.asarray(cp_labels, np.float32).copy()
     boxes_o = lab[:, :4] * r                 # adjust_box_anns, no clip
@@ -452,8 +488,9 @@ def mixup(rng: np.random.Generator, origin_img: np.ndarray,
         new = new[(new[:, 0] < tw) & (new[:, 2] > 0)
                   & (new[:, 1] < th) & (new[:, 3] > 0)]
         origin_labels = np.vstack([origin_labels, new])
-        origin_img = (0.5 * np.asarray(origin_img, np.float32)
-                      + 0.5 * cropped.astype(np.float32))
+        if pixels:
+            origin_img = (0.5 * np.asarray(origin_img, np.float32)
+                          + 0.5 * cropped.astype(np.float32))
     return origin_img, origin_labels
 
 

@@ -21,28 +21,77 @@ from torch import nn
 BN_EPS = 1e-5
 
 
+class _GroupRef:
+    """A process group held by reference: a model's deep copy shares it
+    (a `ProcessGroup` cannot be copied)."""
+    __slots__ = ("group",)
+
+    def __init__(self, group):
+        self.group = group
+
+    def __deepcopy__(self, memo):
+        return self
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """`nn.BatchNorm2d` whose train mode is flax's `BatchNorm` (JAX's
     `blocks.py:batch_norm`, momentum 0.9): it normalizes by the batch
     statistics and moves `running_mean` and `running_var` 0.1 of the way
     to the batch mean and the BIASED batch variance (`nn.BatchNorm2d`
     folds in the unbiased one).  Eval mode, the state-dict names and
-    `num_batches_tracked` are `nn.BatchNorm2d`'s."""
+    `num_batches_tracked` are `nn.BatchNorm2d`'s.
+
+    With a process group (`set_batchnorm_group`) the batch is the global
+    one, as in JAX's data-parallel step: one all_reduce of the rank's
+    (sum, sum of squares, count) a forward, through which the gradient
+    flows, so each rank's input gradient holds the other ranks' terms."""
+
+    _group = _GroupRef(None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self._group.group is not None:
+            return self._global_forward(x, self._group.group)
         with torch.no_grad():
             # flax's "fast variance": E[x^2] - E[x]^2, floored at 0.
             mean = x.mean(dim=(0, 2, 3))
             var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean,
                                   0.0)
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
-            self.num_batches_tracked.add_(1)
+            self._update_running(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True,
                             0.0, self.eps)
+
+    @torch.no_grad()
+    def _update_running(self, mean, var) -> None:
+        m = self.momentum
+        self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+        self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        self.num_batches_tracked.add_(1)
+
+    def _global_forward(self, x: torch.Tensor, group) -> torch.Tensor:
+        from ..parallel.data_parallel import global_sum
+        C = x.shape[1]
+        sums = torch.cat([x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3)),
+                          x.new_full((1,), x.numel() // C)])
+        sums = global_sum(sums, group, kind="bn")
+        n = sums[2 * C]
+        mean = sums[:C] / n
+        var = torch.clamp_min(sums[C:2 * C] / n - mean * mean, 0.0)
+        self._update_running(mean.detach(), var.detach())
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean[None, :, None, None]) * scale[None, :, None, None]
+                + self.bias[None, :, None, None])
+
+
+def set_batchnorm_group(model: nn.Module, group) -> nn.Module:
+    """Every `BatchNorm2d` of `model` takes its train-mode statistics over
+    the ranks of `group` (None: this process's batch alone)."""
+    ref = _GroupRef(group)
+    for mod in model.modules():
+        if isinstance(mod, BatchNorm2d):
+            mod._group = ref
+    return model
 
 
 def activation(name: str) -> nn.Module:

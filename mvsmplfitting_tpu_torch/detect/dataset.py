@@ -20,6 +20,15 @@ it walks GT keypoint annotations, augments each person crop on the
 host (`augment.pose_train_sample`: half-body / scale / rotation /
 flip), builds Gaussian heatmap targets, and yields fixed-size batches
 for `train.make_pose_train_step`.
+
+Both train datasets serve data-parallel ranks (``rank``/``world``): a
+rank yields its contiguous block of each global batch's rows, bitwise
+the rows one process yields under the same seed.  Every row's random
+draws come from one generator, in row order, so a rank replays the
+other ranks' rows on `augment.ShapeOnly` images whose sizes come from
+the file headers (`data/images.py:image_hw`): the draws read shapes,
+boxes and joints, never pixels, and a rank decodes only its own rows'
+images.
 """
 
 from __future__ import annotations
@@ -30,6 +39,8 @@ from typing import Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
+from ..parallel.data_parallel import block_rows
+
 
 def _imread(path: str) -> Optional[np.ndarray]:
     """`cv2.imread(path)`: (H, W, 3) uint8 BGR, or None where the file
@@ -38,6 +49,16 @@ def _imread(path: str) -> Optional[np.ndarray]:
     if not os.path.isfile(path):
         return None
     return read_image(path)
+
+
+def _image_shape(path: str):
+    """`_imread(path)`'s place in a draw replay: a `ShapeOnly` of the
+    decoded image's shape from the headers, or None as `_imread`."""
+    from ..data.images import image_hw
+    from .augment import ShapeOnly
+    if not os.path.isfile(path):
+        return None
+    return ShapeOnly((*image_hw(path), 3))
 
 
 class PoseEvalBatch(NamedTuple):
@@ -155,14 +176,17 @@ class CocoPoseTrainDataset:
                  heatmap_size: Tuple[int, int] = (64, 48),
                  batch_size: int = 32, sigma: float = 2.0,
                  aug=None, seed: int = 0, min_keypoints: int = 1,
-                 loss_type: str = "heatmap", num_joints: int = 0):
+                 loss_type: str = "heatmap", num_joints: int = 0,
+                 rank: int = 0, world: int = 1):
         """``ann_file`` / ``img_root`` may be lists: multiple COCO GT
         jsons concatenate into one shuffled pool (the reference's
         `datasets/concat_dataset.py` + the merged
         `halpe_coco_wholebody_*` classes).  ``num_joints`` > 0
         truncates wider GT rows / zero-pads narrower ones to a common
         width — the merged classes' `keypoints[:num_joints*3]` rule
-        (`halpe_coco_wholebody_26.py:118,189`)."""
+        (`halpe_coco_wholebody_26.py:118,189`).  ``batch_size`` is the
+        global batch; data-parallel ``rank`` of ``world`` yields its
+        block of it (see the module docstring)."""
         from .augment import PoseAugConfig
         if loss_type not in ("heatmap", "integral"):
             raise ValueError(f"unknown loss_type {loss_type!r}")
@@ -176,6 +200,7 @@ class CocoPoseTrainDataset:
         self.input_size = input_size
         self.heatmap_size = heatmap_size
         self.batch_size = batch_size
+        self.rows = block_rows(batch_size, rank, world)
         self.sigma = sigma
         self.loss_type = loss_type
         self.aug = aug or PoseAugConfig(input_hw=input_size)
@@ -237,28 +262,36 @@ class CocoPoseTrainDataset:
         Hm, Wm = self.heatmap_size
         J = self.num_joints
         integral = self.loss_type == "integral"
+        n, lo = len(self.rows), self.rows.start
         for start in range(0, len(order) - self.batch_size + 1,
                            self.batch_size):
-            imgs = np.zeros((self.batch_size, H, W, 3), np.float32)
+            imgs = np.zeros((n, H, W, 3), np.float32)
             if integral:
-                targets = np.zeros((self.batch_size, J * 2), np.float32)
-                weights = np.zeros((self.batch_size, J * 2), np.float32)
+                targets = np.zeros((n, J * 2), np.float32)
+                weights = np.zeros((n, J * 2), np.float32)
             else:
-                targets = np.zeros((self.batch_size, Hm, Wm, J),
-                                   np.float32)
-                weights = np.zeros((self.batch_size, J), np.float32)
-            for i, idx in enumerate(order[start:start +
-                                          self.batch_size]):
+                targets = np.zeros((n, Hm, Wm, J), np.float32)
+                weights = np.zeros((n, J), np.float32)
+            for row, idx in enumerate(order[start:start +
+                                            self.batch_size]):
                 e = self.entries[idx]
-                img = _imread(self._img_path(e.get("src", 0),
-                                             e["image_id"]))
+                path = self._img_path(e.get("src", 0), e["image_id"])
+                x, y, w, h = e["bbox"]
+                box = np.asarray([x, y, x + w, y + h], np.float32)
+                if row not in self.rows:
+                    # another rank's row: its draws, no pixels
+                    shape = _image_shape(path)
+                    if shape is not None:
+                        pose_train_sample(self.rng, shape, box, e["joints"],
+                                          e["vis"], self.aug)
+                    continue
+                img = _imread(path)
                 if img is None:
                     continue
-                x, y, w, h = e["bbox"]
                 crop, j_t, v_t = pose_train_sample(
                     self.rng, img[..., ::-1].astype(np.float32) / 255.0,
-                    np.asarray([x, y, x + w, y + h], np.float32),
-                    e["joints"], e["vis"], self.aug)
+                    box, e["joints"], e["vis"], self.aug)
+                i = row - lo
                 imgs[i] = crop
                 if integral:
                     t, tw = integral_targets_np(j_t, v_t, (H, W))
@@ -293,8 +326,12 @@ class CocoDetTrainDataset:
                  scale_range: Tuple[float, float] = (0.5, 1.5),
                  shear: float = 2.0, mirror_prob: float = 0.5,
                  enable_mixup: bool = True,
-                 mixup_scale: Tuple[float, float] = (0.5, 1.5)):
+                 mixup_scale: Tuple[float, float] = (0.5, 1.5),
+                 rank: int = 0, world: int = 1):
+        """``batch_size`` is the global batch; data-parallel ``rank`` of
+        ``world`` yields its block of it (see the module docstring)."""
         self.img_root = img_root
+        self.rows = block_rows(batch_size, rank, world)
         self.input_hw = input_hw
         self.batch_size = batch_size
         self.max_labels = max_labels
@@ -333,28 +370,40 @@ class CocoDetTrainDataset:
     def __len__(self) -> int:
         return len(self.entries) // self.batch_size
 
-    def _load(self, idx: int):
+    def _load(self, idx: int, pixels: bool = True):
+        """(image, labels) of entry `idx`; a missing file is a black
+        image of the input size.  ``pixels=False``: a `ShapeOnly` from
+        the headers in the image's place."""
+        from .augment import ShapeOnly
         e = self.entries[idx]
         name = self._file_names.get(e["image_id"])
         if name is None:
             name = f"{e['image_id']:012d}.jpg"
-        img = _imread(os.path.join(self.img_root, name))
+        path = os.path.join(self.img_root, name)
+        if not pixels:
+            shape = _image_shape(path)
+            return (ShapeOnly((*self.input_hw, 3)) if shape is None
+                    else shape), e["labels"]
+        img = _imread(path)
         if img is None:
             img = np.zeros((*self.input_hw, 3), np.uint8)
         return img.astype(np.float32), e["labels"]
 
-    def _plain_sample(self, idx: int):
+    def _plain_sample(self, idx: int, pixels: bool = True):
         """letterbox resize + mirror (the no-mosaic TrainTransform
         path, `data_augment.py:189-271`)."""
         from ..data.imgproc import resize_linear
-        from .augment import labels_to_padded, mirror_boxes
-        img, lab = self._load(idx)
+        from .augment import ShapeOnly, labels_to_padded, mirror_boxes
+        img, lab = self._load(idx, pixels)
         ih, iw = self.input_hw
         h0, w0 = img.shape[:2]
         r = min(ih / h0, iw / w0)
-        resized = resize_linear(img, (int(w0 * r), int(h0 * r)))
-        canvas = np.full((ih, iw, 3), 114.0, np.float32)
-        canvas[:resized.shape[0], :resized.shape[1]] = resized
+        if pixels:
+            resized = resize_linear(img, (int(w0 * r), int(h0 * r)))
+            canvas = np.full((ih, iw, 3), 114.0, np.float32)
+            canvas[:resized.shape[0], :resized.shape[1]] = resized
+        else:
+            canvas = ShapeOnly((ih, iw, 3))
         lab = lab.copy()
         lab[:, :4] *= r
         canvas, lab = mirror_boxes(self.rng, canvas, lab,
@@ -366,25 +415,28 @@ class CocoDetTrainDataset:
 
         order = self.rng.permutation(len(self.entries))
         H, W = self.input_hw
+        n, lo = len(self.rows), self.rows.start
         for start in range(0, len(order) - self.batch_size + 1,
                            self.batch_size):
-            imgs = np.zeros((self.batch_size, H, W, 3), np.float32)
-            labels = np.zeros((self.batch_size, self.max_labels, 5),
-                              np.float32)
-            for i, idx in enumerate(order[start:start
-                                          + self.batch_size]):
+            imgs = np.zeros((n, H, W, 3), np.float32)
+            labels = np.zeros((n, self.max_labels, 5), np.float32)
+            for row, idx in enumerate(order[start:start
+                                            + self.batch_size]):
+                # another rank's row: its draws on the images' shapes
+                pixels = row in self.rows
                 if self.mosaic:
                     picks = [int(idx)] + [
                         int(v) for v in self.rng.integers(
                             0, len(self.entries), 3)]
-                    loaded = [self._load(p) for p in picks]
+                    loaded = [self._load(p, pixels) for p in picks]
                     cp_img = cp_lab = None
                     if self.enable_mixup:
                         # every entry has >= 1 box by construction, so
                         # one draw replaces the reference's
                         # resample-until-annotated loop (`:166-168`).
                         cp_img, cp_lab = self._load(int(
-                            self.rng.integers(0, len(self.entries))))
+                            self.rng.integers(0, len(self.entries))),
+                            pixels)
                     img, lab = yolox_train_sample(
                         self.rng, [im for im, _ in loaded],
                         [lb for _, lb in loaded], self.input_hw,
@@ -392,7 +444,8 @@ class CocoDetTrainDataset:
                         cp_image=cp_img, cp_labels=cp_lab,
                         mixup_scale=self.mixup_scale, **self.aug)
                 else:
-                    img, lab = self._plain_sample(int(idx))
-                imgs[i] = img
-                labels[i] = lab
+                    img, lab = self._plain_sample(int(idx), pixels)
+                if pixels:
+                    imgs[row - lo] = img
+                    labels[row - lo] = lab
             yield {"image": imgs, "labels": labels}

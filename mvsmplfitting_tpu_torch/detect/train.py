@@ -25,9 +25,16 @@ The same scaffolding as JAX's, over an `nn.Module` and its tensors:
 - Checkpoints: `.npz` files keyed by the reference's state-dict names
   (`detect/weights.py`), not by flax `keystr` paths as JAX's are.
 - Initial weights drawn as flax's defaults (`flax_init`).
-
-The multi-device branch of JAX's trainers (data parallelism over a
-mesh) is not ported: these train on one device.
+- Data parallelism (JAX's ``("batch",)`` mesh, under which XLA runs the
+  one-device step on the global batch): with a process group every rank
+  runs the step on its block of rows (`parallel.batch_rows`), with
+  BatchNorm statistics over the global batch (`blocks.
+  set_batchnorm_group`), losses that are the rank's share of the global
+  loss (their batch normalizers summed over the ranks:
+  `parallel.global_sum`), and the ranks' gradients summed in one flat
+  buffer (`parallel.all_reduce_grads`).  Every rank ends the step with
+  the same parameters, optimizer state, statistics and EMA, and returns
+  the global loss.
 """
 
 from __future__ import annotations
@@ -41,6 +48,8 @@ import torch
 from torch import nn
 
 from ..fitting.gradient import GradientOptions, _update
+from ..parallel.data_parallel import (all_reduce_grads, broadcast_state,
+                                      global_sum, world_size)
 from .yolox_loss import yolox_losses
 
 
@@ -285,11 +294,17 @@ def integral_targets_np(joints_xy, joints_vis, input_hw):
 
 
 def pose_heatmap_loss(pred: torch.Tensor, target: torch.Tensor,
-                      target_weight: torch.Tensor) -> torch.Tensor:
+                      target_weight: torch.Tensor, group=None
+                      ) -> torch.Tensor:
     """``0.5 * MSELoss(pred * mask, target * mask)``, the mean over all
-    elements.  pred/target: (N, J, H, W); target_weight: (N, J)."""
+    elements.  pred/target: (N, J, H, W); target_weight: (N, J).  With a
+    process group, this rank's share of the global batch's mean (the
+    ranks hold equal blocks)."""
     m = target_weight[:, :, None, None]
-    return 0.5 * torch.mean((pred * m - target * m) ** 2)
+    if group is None:
+        return 0.5 * torch.mean((pred * m - target * m) ** 2)
+    d = pred * m - target * m
+    return 0.5 * torch.sum(d ** 2) / (d.numel() * world_size(group))
 
 
 class _IntegralMul(torch.autograd.Function):
@@ -347,14 +362,16 @@ def integral_coords(hms: torch.Tensor, num_joints: int,
 def integral_l1_loss(pred_hms: torch.Tensor, target: torch.Tensor,
                      target_weight: torch.Tensor,
                      norm_type: str = "softmax", output_3d: bool = False,
-                     size_average: bool = True) -> torch.Tensor:
+                     size_average: bool = True, group=None) -> torch.Tensor:
     """``weighted_l1_loss`` (`criterion.py:85-97`): masked |pred - gt|
-    summed, / N when size_average; target/target_weight (N, J*dims)."""
+    summed, / N when size_average; target/target_weight (N, J*dims).
+    With a process group, this rank's share (N: the global batch)."""
     dims = 3 if output_3d else 2
     J = target.shape[-1] // dims
     jts, _ = integral_coords(pred_hms, J, norm_type, output_3d)
     total = (torch.abs(jts - target) * target_weight).sum()
-    return total / pred_hms.shape[0] if size_average else total
+    n = pred_hms.shape[0] * world_size(group)
+    return total / n if size_average else total
 
 
 # ---------------------------------------------------------------------------
@@ -366,11 +383,21 @@ class TrainState:
     optimizer: Optimizer
     ema: Dict[str, torch.Tensor]      # the state dict's names
     step: int = 0
+    group: Any = None                 # the data-parallel process group
 
 
-def init_train_state(model: nn.Module, optimizer: Optimizer) -> TrainState:
+def init_train_state(model: nn.Module, optimizer: Optimizer,
+                     group=None) -> TrainState:
+    """The state of step 0.  With a process group, rank 0's parameters
+    and buffers go to every rank first (so that no seed or device
+    difference splits the ranks), and the model's BatchNorms take their
+    statistics over the group."""
+    from .blocks import set_batchnorm_group
+    if group is not None:
+        broadcast_state(model, group)
+        set_batchnorm_group(model, group)
     ema = {k: v.detach().clone() for k, v in model.state_dict().items()}
-    return TrainState(model, optimizer, ema, 0)
+    return TrainState(model, optimizer, ema, 0, group)
 
 
 def nchw(images: torch.Tensor) -> torch.Tensor:
@@ -378,14 +405,24 @@ def nchw(images: torch.Tensor) -> torch.Tensor:
     return images.permute(0, 3, 1, 2).contiguous()
 
 
-def make_train_step(loss_fn: Callable, ema_base_decay: float = 0.9999
-                    ) -> Callable:
+def make_train_step(loss_fn: Callable, ema_base_decay: float = 0.9999,
+                    group=None, global_aux: Sequence[str] = ()) -> Callable:
     """``step(state, batch) -> (loss, aux)``: one forward of
     ``state.model`` in train mode on ``nchw(batch['image'])``,
     ``loss_fn(outputs, batch)`` -> scalar or (scalar, aux dict), the
     gradient of every parameter, the optimizer, then the EMA over the new
-    parameters and BatchNorm statistics (updates = the new step count)."""
+    parameters and BatchNorm statistics (updates = the new step count).
+
+    With a process group (`init_train_state`'s), `batch` is this rank's
+    block of the global batch and `loss_fn` returns this rank's share of
+    the global loss and of each aux entry, but for those named in
+    `global_aux`, which it computes over the ranks itself.  The ranks'
+    gradients, loss and aux shares are then summed in one all_reduce, so
+    the step returns the global loss and aux on every rank."""
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        if state.group is not group:
+            raise ValueError("the train state and the step were made for "
+                             "different process groups")
         model = state.model
         model.train()
         out = model(nchw(batch["image"]))
@@ -395,6 +432,16 @@ def make_train_step(loss_fn: Callable, ema_base_decay: float = 0.9999
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
+        if group is not None:
+            shares = [k for k, v in aux.items()
+                      if torch.is_tensor(v) and k not in global_aux]
+            summed = all_reduce_grads(
+                grads + [loss.detach().to(grads[0].dtype)]
+                + [aux[k].detach().to(grads[0].dtype) for k in shares],
+                group)
+            n = len(grads)
+            grads, loss = summed[:n], summed[n]
+            aux = {**aux, **dict(zip(shares, summed[n + 1:]))}
         state.optimizer.step(params, grads)
         state.step += 1
         with torch.no_grad():
@@ -405,61 +452,73 @@ def make_train_step(loss_fn: Callable, ema_base_decay: float = 0.9999
     return step
 
 
-def make_pose_train_step(**kw) -> Callable:
+def make_pose_train_step(group=None, **kw) -> Callable:
     """Heatmap-MSE step (batch: 'image' (N, h, w, 3), 'target' (N, H, W,
     J), 'target_weight' (N, J))."""
     def loss_fn(out, batch):
         return pose_heatmap_loss(out, nchw(batch["target"]),
-                                 batch["target_weight"])
-    return make_train_step(loss_fn, **kw)
+                                 batch["target_weight"], group=group)
+    return make_train_step(loss_fn, group=group, **kw)
 
 
 def make_integral_train_step(norm_type: str = "softmax",
-                             output_3d: bool = False, **kw) -> Callable:
+                             output_3d: bool = False, group=None,
+                             **kw) -> Callable:
     """L1JointRegression step (batch: 'image', 'target' (N, J*dims),
     'target_weight' (N, J*dims))."""
     def loss_fn(out, batch):
         return integral_l1_loss(out, batch["target"],
                                 batch["target_weight"],
-                                norm_type=norm_type, output_3d=output_3d)
-    return make_train_step(loss_fn, **kw)
+                                norm_type=norm_type, output_3d=output_3d,
+                                group=group)
+    return make_train_step(loss_fn, group=group, **kw)
 
 
-def make_yolox_train_step(input_hw, use_l1: bool = False, **kw) -> Callable:
+def make_yolox_train_step(input_hw, use_l1: bool = False, group=None,
+                          **kw) -> Callable:
     """SimOTA step (batch: 'image' (N, h, w, 3), 'labels' (N, MAXG, 5));
     the model has ``train_outputs`` set."""
     def loss_fn(out, batch):
         decoded, origin_reg = out
         losses = yolox_losses(decoded, batch["labels"], input_hw,
-                              origin_reg=origin_reg, use_l1=use_l1)
+                              origin_reg=origin_reg, use_l1=use_l1,
+                              group=group)
         return losses["total"], losses
-    return make_train_step(loss_fn, **kw)
+    return make_train_step(loss_fn, group=group,
+                           global_aux=("fg_ratio", "num_fg"), **kw)
 
 
 def hybrik_smpl_loss(out, batch, assets=None, depth_factor: float = 2.0,
                      w_uvd: float = 1.0, w_beta: float = 1.0,
-                     w_twist: float = 0.01, w_theta: float = 0.01):
+                     w_twist: float = 0.01, w_theta: float = 0.01,
+                     group=None):
     """HybrIK SMPL criterion over the `3d_data_w_smpl` targets
     (`augment3d.hybrik_train_sample`): weighted L1 on the 29-joint
     integral uvd, on beta (gated by smpl_weight), on the 23 (cos, sin)
     twists, and with SMPL ``assets`` on the 24 joint quaternions of the
     analytic IK (`models/hybrik.py`) run on the predicted skeleton, each
     in the target's hemisphere.  Weighted terms divide by the live
-    weight mass (at least 1)."""
+    weight mass (at least 1).  With a process group the masses are the
+    global batch's (one all_reduce) and every term is this rank's share."""
     from .hybrik import uvd_to_xyz
 
     N = out["pred_uvd_jts"].shape[0]
+    weights = [batch["target_weight_29"], batch["target_smpl_weight"],
+               batch["target_twist_weight"]]
+    if assets is not None:
+        weights.append(batch["target_theta_weight"]
+                       * batch["target_smpl_weight"])
+    masses = global_sum(torch.stack([torch.sum(w) for w in weights]),
+                        group)
 
-    def wl1(pred, target, w):
-        return (torch.sum(torch.abs(pred - target) * w)
-                / torch.clamp_min(torch.sum(w), 1.0))
+    def wl1(pred, target, i):
+        return (torch.sum(torch.abs(pred - target) * weights[i])
+                / torch.clamp_min(masses[i], 1.0))
 
     l_uvd = wl1(out["pred_uvd_jts"].reshape(N, -1),
-                batch["target_uvd_29"], batch["target_weight_29"])
-    l_beta = wl1(out["pred_shape"], batch["target_beta"],
-                 batch["target_smpl_weight"])
-    l_twist = wl1(out["pred_phi"], batch["target_twist"],
-                  batch["target_twist_weight"])
+                batch["target_uvd_29"], 0)
+    l_beta = wl1(out["pred_shape"], batch["target_beta"], 1)
+    l_twist = wl1(out["pred_phi"], batch["target_twist"], 2)
     total = w_uvd * l_uvd + w_beta * l_beta + w_twist * l_twist
     aux = {"loss_uvd": l_uvd, "loss_beta": l_beta, "loss_twist": l_twist}
 
@@ -478,21 +537,20 @@ def hybrik_smpl_loss(out, batch, assets=None, depth_factor: float = 2.0,
         sign = torch.sign(torch.sum(quat * tgt.reshape(N, 24, 4), dim=-1,
                                     keepdim=True))
         quat = (quat * torch.where(sign == 0, 1.0, sign)).reshape(N, 96)
-        l_theta = wl1(quat, tgt, batch["target_theta_weight"]
-                      * batch["target_smpl_weight"])
+        l_theta = wl1(quat, tgt, 3)
         total = total + w_theta * l_theta
         aux["loss_theta"] = l_theta
     return total, aux
 
 
 def make_hybrik_train_step(assets=None, depth_factor: float = 2.0,
-                           **kw) -> Callable:
+                           group=None, **kw) -> Callable:
     """HybrIK step (batch: stacked `hybrik_train_sample` dicts, 'image'
     (N, h, w, 3)); SMPL ``assets`` add theta-through-IK supervision."""
     def loss_fn(out, batch):
         return hybrik_smpl_loss(out, batch, assets=assets,
-                                depth_factor=depth_factor)
-    return make_train_step(loss_fn, **kw)
+                                depth_factor=depth_factor, group=group)
+    return make_train_step(loss_fn, group=group, **kw)
 
 
 # ---------------------------------------------------------------------------

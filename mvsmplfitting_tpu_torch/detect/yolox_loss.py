@@ -217,7 +217,7 @@ def simota_assign(bbox_pred, obj_logit, cls_logit, labels, x_shifts,
 def yolox_losses(decoded, labels, input_hw,
                  strides: Sequence[int] = (8, 16, 32),
                  origin_reg=None, use_l1: bool = False,
-                 iou_type: str = "iou"):
+                 iou_type: str = "iou", group=None):
     """Batch YOLOX training loss (``get_losses``, `yolo_head.py:255-425`).
 
     decoded (N, A, 5+C): decoded boxes with obj/cls LOGITS (the
@@ -225,7 +225,14 @@ def yolox_losses(decoded, labels, input_hw,
     (N, A, 4), the raw reg predictions of the L1 branch.  Returns the
     total / iou / obj / cls / l1 losses, fg ratio and num_fg, with the
     reference's ``reg_weight=5.0`` and ``num_fg = max(total fg, 1)``.
+
+    With a process group (data parallelism) the batch is this rank's
+    block: ``num_fg`` and ``num_gts`` are counted over the global batch
+    (one all_reduce), so fg_ratio and num_fg are global and the losses
+    are this rank's shares of the global ones.
     """
+    from ..parallel.data_parallel import global_sum
+
     bbox_pred = decoded[..., :4]
     obj_logit = decoded[..., 4]
     cls_logit = decoded[..., 5:]
@@ -244,8 +251,10 @@ def yolox_losses(decoded, labels, input_hw,
     # anchor keeps at most one gt after the conflict step.
     ious = pairwise_iou_xywh(labels[..., 1:5], bbox_pred)      # (N, G, A)
     pred_iou = torch.gather(ious, 1, matched[:, None, :])[:, 0] * fgf
-    num_fg = torch.clamp_min(fg.sum().to(decoded.dtype), 1.0)
-    num_gts = torch.clamp_min(assign["num_gt"].sum().to(decoded.dtype), 1.0)
+    counts = global_sum(torch.stack([fg.sum(), assign["num_gt"].sum()])
+                        .to(decoded.dtype), group)
+    num_fg = torch.clamp_min(counts[0], 1.0)
+    num_gts = torch.clamp_min(counts[1], 1.0)
 
     reg_target = torch.gather(labels[..., 1:5], 1,
                               matched[..., None].expand(-1, -1, 4))
