@@ -161,7 +161,11 @@ Phases (each prints one line; any failure exits non-zero):
      fits';
  21. [keypoints] the keypoint CLI (`mvsmplfitting_tpu_torch.cli.
      keypoints`) at full width: the image reader against OpenCV's
-     recorded decodes of `tests/fixtures/images` (sha256); YOLOX-X
+     recorded decodes of `tests/fixtures/images` (sha256: baseline and
+     progressive JPEG, plain, Adam7 and eXIf-turned PNG, BMP; the
+     incomplete progressive JPEG and the RLE8 BMP refused), the host
+     decode ms of a 1920x1080 baseline and progressive 4:2:0 view;
+     YOLOX-X
      (800x1440) and FastPose (256x192, 26 joints) checkpoints in the
      reference's names from seed 0 (YOLOX's BaseConv convolutions at
      half gain, box-size biases + log 6, the objectness bias shifted to
@@ -174,7 +178,10 @@ Phases (each prints one line; any failure exits non-zero):
      and NMS host ms per view, conv FLOPs counted from the modules'
      shapes and the share of the fp32 (67 TFLOP/s) or bf16 (989) peak;
      every JSON written and read back by the fitting dataset; no B1-B4
-     launch; `python -m mvsmplfitting_tpu_torch.cli.keypoints` in a
+     launch; `--bf16` on one frame whose views are a progressive JPEG, a
+     BMP of view 1 and four baseline JPEGs (views 1-5 against the bf16
+     run's frame 0, the largest difference reported);
+     `python -m mvsmplfitting_tpu_torch.cli.keypoints` in a
      subprocess with its default device, its JSONs against the
      in-process fp32 run's (the same people; the largest difference
      reported); the detector's 6-view forward with and without cuDNN's
@@ -203,7 +210,11 @@ Phases (each prints one line; any failure exits non-zero):
      workspace, served on 127.0.0.1 in this process: `/`, `/api/state`
      (six 640x360 JPEGs), a keypoint moved 8 px, `/api/refit`,
      `/api/state` and `/api/save`, with the first fit's, the state's and
-     the refit's seconds, the losses and the B1/B2 launches;
+     the refit's seconds, the losses and the B1/B2 launches; (g)
+     `AdjustApp.state()` on a 1280x720 progressive view (scale exactly
+     0.5, OpenCV's INTER_AREA halving), the app built without a session
+     on the committed body: the served JPEG against the sha256 of
+     cv2's `imencode(resize(render, fx=fy=0.5), q80)`;
  23. [stream] the keypoint CLI's other modes at full width, with
      `keypoint_weights`' YOLOX-X and FastPose checkpoints: (a) the six
      fixture JPEGs muxed into a Motion-JPEG AVI as written and with
@@ -214,7 +225,9 @@ Phases (each prints one line; any failure exits non-zero):
      per-stage seconds a frame (demux, decode, the nets' stages, json,
      draw, encode, results), 12 JSONs read back by the fitting data
      layer's reader, the results file (one entry a person) and the drawn
-     video re-read (12 frames); (c) `--pose_cfg` with three configs in
+     video re-read (12 frames); (e) `--video` on a folder of a baseline
+     JPEG, a progressive JPEG and a 24-bit BMP frame, each read to
+     `read_image`'s sha256, 3 JSONs; (c) `--pose_cfg` with three configs in
      the reference's layout, all 256x192: FastPose-DCN (halpe26,
      CONV_DIM 256, STAGE_WITH_DCN [F, T, T, T], offset convs at 3x gain:
      their |offset| mean and max and the share of taps outside the
@@ -284,6 +297,7 @@ import dataclasses
 import json
 import os
 import re
+import struct
 import subprocess
 import sys
 import time
@@ -2096,6 +2110,20 @@ def cli_phase(dev, launches: dict) -> None:
 KP_FRAMES = 4          # [keypoints]: frames of the six fixture views
 KP_TARGET = 8          # [keypoints]: detector candidates per view (mean)
 KP_CHECK_CROPS = 16    # [keypoints]: crops of the card-vs-CPU pose check
+KP_PROGRESSIVE = "jpeg_prog_420_1920x1080_q90.jpg"   # [keypoints], [stream]
+
+
+def write_bmp24(path: str, img: np.ndarray) -> None:
+    """`img` ((H, W, 3) uint8 BGR) as a 24-bit bottom-up BMP."""
+    h, w = img.shape[:2]
+    stride = (3 * w + 3) // 4 * 4
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :3 * w] = img[::-1].reshape(h, 3 * w)
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size, 2835,
+                       2835, 0, 0)
+    with open(path, "wb") as f:
+        f.write(b"BM" + struct.pack("<IHHI", 54 + rows.size, 0, 0, 54)
+                + info + rows.tobytes())
 IMAGE_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "images")
 
 
@@ -2205,9 +2233,27 @@ def keypoints_phase(dev, launches: dict, weights) -> None:
     t0 = time.perf_counter()
     imgs = [read_image(p) for p in views]
     read_s = (time.perf_counter() - t0) / 6
+    # The progressive fixture is view 1's render: the two decodes of that
+    # view in turns, the median of each.
+    progressive = os.path.join(IMAGE_FIXTURES, KP_PROGRESSIVE)
+    turns = {views[1]: [], progressive: []}
+    for _ in range(6):
+        for p, ts in turns.items():
+            t0 = time.perf_counter()
+            read_image(p)
+            ts.append(time.perf_counter() - t0)
+    base_s, prog_s = (float(np.median(ts)) for ts in turns.values())
+    kinds = {}
+    for name in recorded:
+        kind = name.split("_")[0] if "_" in name else "view"
+        kinds[kind] = kinds.get(kind, 0) + 1
     log("keypoints", reader_files=len(recorded),
         refused=sum(r is None for r in recorded.values()),
-        matches="opencv_sha256", decode_ms_1080p=f"{1e3 * read_s:.2f}")
+        files_by_kind=json.dumps(kinds).replace(" ", ""),
+        matches="opencv_sha256", decode_ms_1080p=f"{1e3 * read_s:.2f}",
+        decode_ms_view1_baseline_median=f"{1e3 * base_s:.2f}",
+        decode_ms_view1_progressive_median=f"{1e3 * prog_s:.2f}",
+        card=repr(card_line()))
 
     # ---- weights from seed 0 in the reference's names (see
     # `keypoint_weights`) ------------------------------------------------
@@ -2307,6 +2353,55 @@ def keypoints_phase(dev, launches: dict, weights) -> None:
                 assert fr.keypoints.shape == (6, 1, 17, 3)
                 assert np.isfinite(fr.keypoints).all()
                 assert fr.img_hw == (1080, 1920)
+
+        # ---- one frame whose views include a progressive JPEG and a BMP
+        # (under the frame's .jpg name: the CLI groups views by file name
+        # and lists .jpg/.png names as JAX's does, and imread, like the
+        # port's reader, goes by the bytes)
+        mixed = os.path.join(tmp, "mixed")
+        for v, src in enumerate(views):
+            d = os.path.join(mixed, "images", "0000", f"Camera0{v}")
+            os.makedirs(d)
+            if v == 0:
+                shutil.copy(progressive, os.path.join(d, "000000.jpg"))
+            elif v == 1:
+                write_bmp24(os.path.join(d, "000000.jpg"), imgs[1])
+            else:
+                shutil.copy(src, os.path.join(d, "000000.jpg"))
+        assert hashlib.sha256(read_image(os.path.join(
+            mixed, "images", "0000", "Camera01", "000000.jpg")).tobytes()
+            ).hexdigest() == hashlib.sha256(imgs[1].tobytes()).hexdigest()
+        buf = io.StringIO()
+        reset_launches(JK, VK, SK)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = kcli.main(["--data_folder", mixed, "--yolox_ckpt",
+                            yolox_ckpt, "--pose_ckpt", pose_ckpt, "--device",
+                            dev.type, "--bf16", "--det_thresh",
+                            repr(thresh16)])
+        torch.cuda.synchronize()
+        mixed_s = time.perf_counter() - t0
+        got = read_launches(JK, VK, SK)
+        launches["keypoints_mixed_formats"] = got
+        assert rc == 0, buf.getvalue()
+        assert not any(got.values()), f"[keypoints] launched {got}"
+        diff = 0.0
+        for v in range(6):
+            rel = os.path.join("0000", f"Camera0{v}", "000000_keypoints.json")
+            a = read_keypoints_json(os.path.join(mixed, "keypoints", rel), 26)
+            assert all(np.isfinite(pa).all() for pa in a), rel
+            if v > 0:         # the same pixels as the bf16 run's frame 0
+                b = read_keypoints_json(os.path.join(
+                    ws, "keypoints_bf16", rel), 26)
+                if len(a) == len(b):
+                    for pa, pb in zip(a, b):
+                        diff = max(diff, float(np.abs(pa - pb).max()))
+                else:
+                    diff = float("inf")
+        log("keypoints", check="mixed_formats_bf16", frames=1,
+            views="progressive_jpeg,bmp,4_baseline_jpeg",
+            wall_s=f"{mixed_s:.3f}",
+            views1to5_max_diff_vs_bf16_run=diff)
 
     # ---- per-stage times, frames/s, memory, share of peak ------------
     det_flops = conv_flops(YOLOX().to("meta"),
@@ -2696,6 +2791,65 @@ def overlay_phase(dev, launches: dict) -> None:
             moved="view 0 joint 5 +8 px (640-wide view)",
             launches=json.dumps(got).replace(" ", ""), card=card)
 
+    # ---- (g) the GUI's state() on a 1280x720 view (an exact halving) ----
+    gui_halving_check(dev, G, card)
+
+
+def gui_halving_check(dev, G, card: str) -> None:
+    """[overlay] (g): `AdjustApp.state()` on one 1280x720 view (the
+    progressive fixture `gui_halving.json` names), its scale exactly 0.5.
+    The app is built without a session, its body forward giving the
+    committed overlay body, so that the served JPEG is the sha256
+    `tools/make_image_fixtures.py` recorded from cv2: `imencode(q80)` of
+    `cv2.resize(render, None, fx=0.5, fy=0.5)`."""
+    import base64
+    import threading
+    import types
+
+    from mvsmplfitting_tpu_torch.fitting.stages import FitResult
+    from mvsmplfitting_tpu_torch.models.assets import synthetic_smpl
+    from mvsmplfitting_tpu_torch.models.smpl import SMPLParams
+
+    with open(os.path.join(IMAGE_FIXTURES, "gui_halving.json")) as f:
+        rec = json.load(f)
+    verts = np.load(os.path.join(OVERLAY_FIXTURES, "verts.npy"))
+    app = G.AdjustApp.__new__(G.AdjustApp)
+    cams = {k: torch.tensor([v], device=dev) for k, v in rec["camera"].items()}
+    app.sess = types.SimpleNamespace(
+        assets=synthetic_smpl("smpl", device=dev),
+        cameras=types.SimpleNamespace(**cams))
+    app.frame = types.SimpleNamespace(
+        img_hw=(720, 1280),
+        img_paths=[os.path.join(IMAGE_FIXTURES, rec["image"])])
+    app.max_size, app.override = 640, None
+    app.lock = threading.Lock()
+    app.keypoints = np.zeros((1, 17, 3), np.float32)
+    z = torch.zeros((1, 3), device=dev)
+    app.result = FitResult(
+        params=SMPLParams(betas=torch.zeros((1, 10), device=dev),
+                          global_orient=z, body_pose=torch.zeros(
+                              (1, 69), device=dev), transl=z,
+                          scale=torch.ones(1, device=dev)),
+        body_pose=torch.zeros((1, 69), device=dev),
+        z=torch.zeros((1, 32), device=dev), loss=torch.ones(1, device=dev),
+        stage_losses=torch.ones((1, 1), device=dev),
+        lm_iters=torch.ones((1, 1), dtype=torch.int32, device=dev))
+    forward = G.smpl_forward
+    G.smpl_forward = lambda *a: (torch.from_numpy(verts)[None], None)
+    try:
+        t0 = time.perf_counter()
+        view = app.state()["views"][0]
+        state_s = time.perf_counter() - t0
+    finally:
+        G.smpl_forward = forward
+    jpg = base64.b64decode(view["img"])
+    assert (view["width"], view["height"]) == (640, 360), view["width"]
+    assert _sha(jpg) == rec["sha256"], \
+        "the 1280x720 view's JPEG is not cv2's halving of the render"
+    log("overlay", part="gui_1280x720", image=rec["image"],
+        served="640x360", equal="cv2 resize fx=fy=0.5 + imencode q80 "
+        "(sha256)", state_s=f"{state_s:.3f}", card=card)
+
 
 ST_FRAMES = 12         # [stream] (b): frames of the fixture clip
 ST_CFG_FRAMES = 2      # [stream] (c): frames x the six views a config
@@ -2993,6 +3147,32 @@ def stream_phase(dev, launches: dict, weights) -> None:
             per_frame_s=per_frame(timer, ST_FRAMES, stages),
             per_frame_dev_s=",".join(f"{k}:{v / ST_FRAMES:.4f}"
                                      for k, v in dev_s.items()),
+            launches_b1_b4=0, card=card)
+
+        # ---- (e) --video on a folder: baseline, progressive and BMP frames
+        folder = os.path.join(tmp, "frames")
+        os.makedirs(folder)
+        shutil.copy(views[0], os.path.join(folder, "000000.jpg"))
+        shutil.copy(os.path.join(IMAGE_FIXTURES, KP_PROGRESSIVE),
+                    os.path.join(folder, "000001.jpg"))
+        write_bmp24(os.path.join(folder, "000002.bmp"), imgs[2])
+        want_frames = [sha(imgs[0]), sha(read_image(os.path.join(
+            IMAGE_FIXTURES, KP_PROGRESSIVE))), sha(imgs[2])]
+        from mvsmplfitting_tpu_torch.detect.stream import frame_source
+        assert [sha(f) for _, f in frame_source(folder)] == want_frames
+        folder_ws = os.path.join(tmp, "folder_ws")
+        timer, wall = run_cli([
+            "--video", folder, "--data_folder", folder_ws, "--yolox_ckpt",
+            yolox_ckpt, "--pose_ckpt", pose_ckpt, "--device", dev.type],
+            "folder")
+        jsons = sorted(os.listdir(os.path.join(folder_ws, "keypoints",
+                                               "stream")))
+        assert jsons == [f"{i:06d}_keypoints.json" for i in range(3)], jsons
+        log("stream", part="folder", frames=3,
+            kinds="baseline_jpeg,progressive_jpeg,bmp24", size=f"{w}x{h}",
+            equal="read_image sha256", wall_s=f"{wall:.3f}",
+            decode_s_each=",".join(f"{v:.4f}"
+                                   for v in timer.timings.get("decode", [])),
             launches_b1_b4=0, card=card)
 
         # ---- (c) --pose_cfg: three reference configs ------------------------

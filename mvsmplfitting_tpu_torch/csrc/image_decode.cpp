@@ -1,5 +1,5 @@
-// Host image decoding for `data/images.py`: baseline Huffman JPEG to
-// BGR, and the PNG row filters.
+// Host image decoding for `data/images.py`: baseline and progressive
+// Huffman JPEG to BGR, and the PNG row filters.
 //
 // The JPEG path follows libjpeg's default decompression, which
 // OpenCV's `imread` runs through its bundled libjpeg-turbo, step by step
@@ -9,6 +9,13 @@
 //     restart intervals; a scan without a DHT segment takes the standard
 //     tables of Annex K.3 (`jpeg_std_tables.h`), as libjpeg does for the
 //     Motion-JPEG frames that leave them out;
+//   * progressive files (SOF2): every scan (DC first and refine, AC
+//     first and refine with EOB runs, restart intervals) is decoded into
+//     a whole-image coefficient buffer as jdphuff.c does, and the
+//     buffer then goes through the steps below, as libjpeg's
+//     decompress_data does once the file is read.  A file that leaves a
+//     coefficient unsent or not fully refined is refused: libjpeg would
+//     smooth such blocks (jdcoefct.c, decompress_smooth_data);
 //   * dequantization and the "islow" integer inverse DCT
 //     (jidctint.c: 13-bit constants, 2 extra bits in the first pass,
 //     the masked range-limit table);
@@ -16,8 +23,9 @@
 //     and h1v2 triangle filters with libjpeg's edge and context rows;
 //     other integral ratios replicate samples);
 //   * the fixed-point YCbCr -> BGR tables (jdcolor.c, 16-bit scale).
-// Progressive, lossless, hierarchical and arithmetic-coded files, and
-// precisions other than 8 bits, are refused with a message.
+// Lossless, hierarchical and arithmetic-coded files, precisions other
+// than 8 bits and files of more than one frame are refused with a
+// message.
 //
 // Built with g++ into a shared library and called through ctypes; every
 // entry point returns 0 on success, or a nonzero code with a message in
@@ -87,7 +95,16 @@ struct Component {
   int dw = 0, dh = 0;            // downsampled width and height
   int bw = 0, bh = 0;            // blocks per row / column in the plane
   int pred = 0;                  // DC predictor
+  // The quantization table, latched at the component's first scan as
+  // libjpeg latches it (jdinput.c, latch_quant_tables).
+  uint16_t q[64];
+  bool q_latched = false;
   std::vector<uint8_t> plane;    // bw*8 x bh*8 samples
+  // Progressive files: bw x bh blocks of 64 coefficients (natural
+  // order), and per coefficient the Al of its last scan, -1 if unsent
+  // (libjpeg's coef_bits).
+  std::vector<int16_t> coef;
+  int coef_bits[64];
 };
 
 class BitReader {
@@ -344,6 +361,9 @@ struct Jpeg {
   int width = 0, height = 0;
   int hmax = 1, vmax = 1;
   int restart_interval = 0;
+  bool progressive = false;
+  int ss = 0, se = 63, ah = 0, al = 0;  // the current scan's parameters
+  int eobrun = 0;                       // progressive AC scans
   bool jfif = false, adobe = false;
   int adobe_transform = -1;
   bool frame_seen = false;
@@ -360,17 +380,18 @@ struct Jpeg {
   }
 
   void read_sof(size_t p, int len, int marker) {
-    if (marker == 0xC2 || marker == 0xC6 || marker == 0xCA ||
-        marker == 0xCE)
-      fail("progressive JPEG is not supported (baseline only)");
     if (marker == 0xC3 || marker == 0xC7 || marker == 0xCB ||
         marker == 0xCF)
-      fail("lossless JPEG is not supported (baseline only)");
+      fail("lossless JPEG is not supported (Huffman baseline and "
+           "progressive only)");
     if (marker >= 0xC9)
-      fail("arithmetic-coded JPEG is not supported (baseline only)");
-    if (marker == 0xC5)
-      fail("hierarchical JPEG is not supported (baseline only)");
+      fail("arithmetic-coded JPEG is not supported (Huffman baseline and "
+           "progressive only)");
+    if (marker == 0xC5 || marker == 0xC6)
+      fail("hierarchical JPEG is not supported (Huffman baseline and "
+           "progressive only)");
     if (frame_seen) fail("more than one frame");
+    progressive = marker == 0xC2;
     if (len < 6) fail("bad SOF length");
     frame_seen = true;
     int precision = d[p];
@@ -407,6 +428,10 @@ struct Jpeg {
       c.bw = mcux * c.h;
       c.bh = mcuy * c.v;
       c.plane.assign(size_t(c.bw) * 8 * c.bh * 8, 0);
+      if (progressive) {
+        c.coef.assign(size_t(c.bw) * c.bh * 64, 0);
+        std::fill(c.coef_bits, c.coef_bits + 64, -1);
+      }
     }
   }
 
@@ -439,53 +464,194 @@ struct Jpeg {
     }
   }
 
+  // A sequential block: its DC and AC coefficients as a progressive
+  // file's first scans code them with Al = 0, then the inverse DCT.
   void decode_block(BitReader& br, Component& c, int bx, int by) {
     int16_t coef[64];
     std::memset(coef, 0, sizeof(coef));
-    const Huffman& hd = dc[c.td];
-    const Huffman& ha = ac[c.ta];
-    int s = decode_huff(br, hd);
+    dc_first(br, c, coef);
+    ac_first(br, c, coef, 1);
+    eobrun = 0;  // a sequential block ends at its end-of-block code
+    idct_block(c, coef, bx, by);
+  }
+
+  void idct_block(Component& c, const int16_t* coef, int bx, int by) {
+    int stride = c.bw * 8;
+    idct_islow(coef, c.q,
+               c.plane.data() + size_t(by) * 8 * stride + size_t(bx) * 8,
+               stride);
+  }
+
+  // ---- progressive scans (jdphuff.c) --------------------------------
+  int16_t* coefs(Component& c, int bx, int by) {
+    return c.coef.data() + (size_t(by) * c.bw + bx) * 64;
+  }
+
+  void dc_first(BitReader& br, Component& c, int16_t* b) {
+    int s = decode_huff(br, dc[c.td]);
     int diff = s ? extend(br.get(s), s) : 0;
     c.pred += diff;
-    coef[0] = int16_t(c.pred);
-    for (int k = 1; k < 64;) {
-      int rs = decode_huff(br, ha);
-      int r = rs >> 4;
-      s = rs & 15;
+    b[0] = int16_t(uint32_t(c.pred) << al);
+  }
+
+  void dc_refine(BitReader& br, int16_t* b) {
+    if (br.get(1)) b[0] = int16_t(b[0] | (1 << al));
+  }
+
+  // The AC coefficients start..se of a block.
+  void ac_first(BitReader& br, Component& c, int16_t* b, int start) {
+    if (eobrun > 0) {
+      --eobrun;
+      return;
+    }
+    const Huffman& t = ac[c.ta];
+    for (int k = start; k <= se; ++k) {
+      int rs = decode_huff(br, t);
+      int r = rs >> 4, s = rs & 15;
       if (s) {
         k += r;
         if (k > 63) fail("corrupt AC coefficients");
-        coef[kZigzag[k]] = int16_t(extend(br.get(s), s));
-        ++k;
+        b[kZigzag[k]] = int16_t(uint32_t(extend(br.get(s), s)) << al);
+      } else if (r == 15) {
+        k += 15;
       } else {
-        if (r != 15) break;
-        k += 16;
+        eobrun = (1 << r) - 1;
+        if (r) eobrun += br.get(r);
+        break;
       }
     }
-    int stride = c.bw * 8;
-    idct_islow(coef, qt[c.tq],
-               c.plane.data() + size_t(by) * 8 * stride + size_t(bx) * 8,
-               stride);
+  }
+
+  // One correction bit for an already-nonzero coefficient.
+  void refine_bit(BitReader& br, int16_t* coef) {
+    int p1 = 1 << al;
+    if (br.get(1) && (*coef & p1) == 0)
+      *coef = int16_t(*coef >= 0 ? *coef + p1 : *coef - p1);
+  }
+
+  void ac_refine(BitReader& br, Component& c, int16_t* b) {
+    int p1 = 1 << al;
+    int k = ss;
+    if (eobrun == 0) {
+      const Huffman& t = ac[c.ta];
+      for (; k <= se; ++k) {
+        int rs = decode_huff(br, t);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          if (s != 1) fail("corrupt AC refinement");
+          s = br.get(1) ? p1 : -p1;
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += br.get(r);
+          break;  // the rest of the band goes through the EOB run
+        }
+        // Advance over the nonzero coefficients, refining each, and
+        // over r zero coefficients; a new coefficient lands on the next
+        // zero one.
+        for (; k <= se; ++k) {
+          int16_t* coef = b + kZigzag[k];
+          if (*coef != 0) {
+            refine_bit(br, coef);
+          } else {
+            if (--r < 0) break;
+          }
+        }
+        if (s) {
+          if (k > se) fail("corrupt AC refinement");
+          b[kZigzag[k]] = int16_t(s);
+        }
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; ++k) {
+        int16_t* coef = b + kZigzag[k];
+        if (*coef != 0) refine_bit(br, coef);
+      }
+      --eobrun;
+    }
+  }
+
+  void decode_progressive(BitReader& br, Component& c, int bx, int by) {
+    int16_t* b = coefs(c, bx, by);
+    if (ss == 0)
+      ah == 0 ? dc_first(br, c, b) : dc_refine(br, b);
+    else
+      ah == 0 ? ac_first(br, c, b, ss) : ac_refine(br, c, b);
+  }
+
+  // libjpeg's checks of a progressive scan's parameters and of the
+  // order of the scans (jdphuff.c, start_pass_phuff_decoder); where
+  // libjpeg only warns of a bad order, the file is refused.
+  void start_progressive_scan(const std::vector<int>& members) {
+    bool bad = false;
+    if (ss == 0) {
+      if (se != 0) bad = true;
+    } else {
+      if (ss > se || se > 63) bad = true;
+      if (members.size() != 1) bad = true;
+    }
+    if (ah != 0 && al != ah - 1) bad = true;
+    if (al > 13) bad = true;
+    if (bad) fail("bad progressive scan parameters");
+    for (int ci : members) {
+      int* bits = comps[ci].coef_bits;
+      if (ss != 0 && bits[0] < 0)
+        fail("an AC scan before the component's first DC scan");
+      for (int k = ss; k <= se; ++k) {
+        if (ah != (bits[k] < 0 ? 0 : bits[k]))
+          fail("progressive scans out of order");
+        bits[k] = al;
+      }
+    }
+    eobrun = 0;
+  }
+
+  // After the last scan: every coefficient fully refined, then the
+  // blocks the output reads go through the inverse DCT.
+  void finish_progressive() {
+    for (size_t ci = 0; ci < comps.size(); ++ci) {
+      Component& c = comps[ci];
+      for (int k = 0; k < 64; ++k)
+        if (c.coef_bits[k] != 0)
+          fail("incomplete progressive JPEG: coefficient " +
+               std::to_string(k) + " of component " + std::to_string(ci) +
+               (c.coef_bits[k] < 0 ? " was never sent"
+                                   : " is not fully refined") +
+               " (libjpeg would smooth the blocks)");
+      int nbx = (c.dw + 7) / 8, nby = (c.dh + 7) / 8;
+      for (int by = 0; by < nby; ++by)
+        for (int bx = 0; bx < nbx; ++bx)
+          idct_block(c, coefs(c, bx, by), bx, by);
+    }
   }
 
   // Decodes one scan starting at `p` (just past its SOS header); returns
   // the position after its entropy-coded data.
   size_t decode_scan(size_t p, const std::vector<int>& members) {
+    if (progressive) start_progressive_scan(members);
+    // Which tables the scan reads: DC refinement reads none, AC scans of
+    // a progressive file only their AC table.
+    bool needs_dc = !progressive || (ss == 0 && ah == 0);
+    bool needs_ac = !progressive || ss != 0;
     for (int ci : members) {
       Component& c = comps[ci];
-      if (!qt_present[c.tq]) fail("missing quantization table");
+      if (!c.q_latched) {
+        if (!qt_present[c.tq]) fail("missing quantization table");
+        std::memcpy(c.q, qt[c.tq], sizeof(c.q));
+        c.q_latched = true;
+      }
       // A scan whose table was never defined (Motion-JPEG frames leave
       // out DHT) takes the standard table of its index, as libjpeg's
       // jpeg_make_d_derived_tbl does through jpeg_std_huff_table; there
       // are standard tables for indices 0 and 1 only.
-      if (!dc[c.td].present) {
+      if (needs_dc && !dc[c.td].present) {
         if (c.td > 1) fail("missing Huffman table");
         dc[c.td].build(c.td ? jpeg_std::kDcChromBits + 1
                             : jpeg_std::kDcLumBits + 1,
                        c.td ? jpeg_std::kDcChromVals : jpeg_std::kDcLumVals,
                        12);
       }
-      if (!ac[c.ta].present) {
+      if (needs_ac && !ac[c.ta].present) {
         if (c.ta > 1) fail("missing Huffman table");
         ac[c.ta].build(c.ta ? jpeg_std::kAcChromBits + 1
                             : jpeg_std::kAcLumBits + 1,
@@ -504,14 +670,21 @@ struct Jpeg {
         ++restarts;
         todo = restart_interval;
         for (int ci : members) comps[ci].pred = 0;
+        eobrun = 0;
       }
+    };
+    auto block = [&](Component& c, int bx, int by) {
+      if (progressive)
+        decode_progressive(br, c, bx, by);
+      else
+        decode_block(br, c, bx, by);
     };
     if (members.size() == 1) {
       Component& c = comps[members[0]];
       int nbx = (c.dw + 7) / 8, nby = (c.dh + 7) / 8;
       for (int by = 0; by < nby; ++by)
         for (int bx = 0; bx < nbx; ++bx) {
-          decode_block(br, c, bx, by);
+          block(c, bx, by);
           restart_if_due(by == nby - 1 && bx == nbx - 1);
         }
     } else {
@@ -523,7 +696,7 @@ struct Jpeg {
             Component& c = comps[ci];
             for (int v = 0; v < c.v; ++v)
               for (int h = 0; h < c.h; ++h)
-                decode_block(br, c, mx * c.h + h, my * c.v + v);
+                block(c, mx * c.h + h, my * c.v + v);
           }
           restart_if_due(my == mcuy - 1 && mx == mcux - 1);
         }
@@ -554,7 +727,8 @@ struct Jpeg {
           scanned.assign(comps.size(), false);
           break;
         case 0xCC:
-          fail("arithmetic-coded JPEG is not supported (baseline only)");
+          fail("arithmetic-coded JPEG is not supported (Huffman baseline "
+             "and progressive only)");
         case 0xC4:
           read_dht(body, end);
           break;
@@ -597,9 +771,11 @@ struct Jpeg {
             scanned[ci] = true;
           }
           size_t q = body + 1 + 2 * ns;
-          int ss = d[q], se = d[q + 1], ah = d[q + 2] >> 4,
-              al = d[q + 2] & 15;
-          if (ss != 0 || se != 63 || ah != 0 || al != 0)
+          ss = d[q];
+          se = d[q + 1];
+          ah = d[q + 2] >> 4;
+          al = d[q + 2] & 15;
+          if (!progressive && (ss != 0 || se != 63 || ah != 0 || al != 0))
             fail("progressive scan parameters in a sequential file");
           p = decode_scan(end, members);
           continue;
@@ -612,6 +788,7 @@ struct Jpeg {
     if (!frame_seen) fail("no frame header");
     for (bool s : scanned)
       if (!s) fail("a component has no scan");
+    if (progressive) finish_progressive();
   }
 
   ColorSpace color_space() const {
@@ -778,7 +955,8 @@ int jpeg_info(const uint8_t* data, size_t n, int* width, int* height,
         break;
       }
       if (marker == 0xCC)
-        fail("arithmetic-coded JPEG is not supported (baseline only)");
+        fail("arithmetic-coded JPEG is not supported (Huffman baseline "
+             "and progressive only)");
       p += len;
     }
     *width = j.width;
@@ -792,7 +970,8 @@ int jpeg_info(const uint8_t* data, size_t n, int* width, int* height,
   }
 }
 
-// Decodes a baseline JPEG into `out` (height x width x 3, BGR).
+// Decodes a baseline or progressive JPEG into `out` (height x width x 3,
+// BGR).
 int jpeg_decode_bgr(const uint8_t* data, size_t n, uint8_t* out,
                     int width, int height, char* err, int errlen) {
   try {

@@ -83,17 +83,52 @@ def resize_linear_u8(img: torch.Tensor, out_w: int, out_h: int,
     return out.clamp_(0, 255).to(torch.uint8)
 
 
+def resize_area_half_u8(img: torch.Tensor) -> torch.Tensor:
+    """`cv2.resize(img, None, fx=0.5, fy=0.5)` for an (H, W, C) uint8
+    tensor, on its device: OpenCV sends an exact halving to its INTER_AREA
+    fast path (`resizeAreaFast_`).  The output is `round(side * 0.5)`
+    half to even on each axis.  A whole 2x2 block gives
+    `(a + b + c + d + 2) >> 2`; where a side is 3 mod 4 the last output
+    row or column covers one source row or column, and gives the mean of
+    its two samples rounded half to even (the corner: its one sample)."""
+    h, w = img.shape[:2]
+    oh, ow = round(h * 0.5), round(w * 0.5)
+    if oh == 0 or ow == 0:
+        raise ValueError(f"resize_area_half_u8: a {h}x{w} image halves to "
+                         "nothing")
+    h2, w2 = h // 2, w // 2
+    x = img.to(torch.int32)
+    out = torch.empty((oh, ow) + tuple(img.shape[2:]), dtype=torch.int32,
+                      device=img.device)
+    blocks = (x[0:2 * h2:2, 0:2 * w2:2] + x[1:2 * h2:2, 0:2 * w2:2]
+              + x[0:2 * h2:2, 1:2 * w2:2] + x[1:2 * h2:2, 1:2 * w2:2])
+    out[:h2, :w2] = ((blocks + 2) >> 2)[:oh, :ow]
+
+    def pair_mean(s):                       # s / 2 rounded half to even
+        half = s >> 1
+        return half + (s & half & 1)
+
+    if ow > w2:
+        out[:h2, w2] = pair_mean(x[0:2 * h2:2, w - 1] + x[1:2 * h2:2, w - 1])
+    if oh > h2:
+        out[h2, :w2] = pair_mean(x[h - 1, 0:2 * w2:2]
+                                 + x[h - 1, 1:2 * w2:2])[:ow]
+        if ow > w2:
+            out[h2, w2] = x[h - 1, w - 1]
+    return out.to(torch.uint8)
+
+
 def resize_linear_u8_by(img: torch.Tensor, fx: float, fy: float
                         ) -> torch.Tensor:
     """`cv2.resize(img, None, fx=fx, fy=fy)` (INTER_LINEAR): the output
     size is `w * fx`, `h * fy` rounded half to even, and the taps step by
     `1 / fx`, `1 / fy` (not `w / out_w`, which can pick other taps).  An
-    exact halving, which OpenCV sends to INTER_AREA, is refused."""
+    exact halving goes where OpenCV sends it, to INTER_AREA
+    (`resize_area_half_u8`)."""
     h, w = img.shape[:2]
     eps = sys.float_info.epsilon
     if abs(1.0 / fx - 2.0) < eps and abs(1.0 / fy - 2.0) < eps:
-        raise ValueError("resize_linear_u8_by: an exact halving is "
-                         "INTER_AREA in OpenCV, not ported")
+        return resize_area_half_u8(img)
     out_w, out_h = round(w * fx), round(h * fy)
     return resize_linear_u8(img, out_w, out_h, fx, fy)
 

@@ -10,8 +10,10 @@ net (or HybrIK) per frame, then written: one OpenPose JSON per frame
 results file (`pose_nms.write_results_json`) and a drawn Motion-JPEG AVI
 at 30 fps (`viz/video.py:VideoWriter`).  A webcam index (V4L2) is
 refused, and so is a video other than Motion-JPEG AVI, naming the file
-and the fourcc; in a folder, a file the image reader refuses raises
-naming it (JAX's `cv2.imread` reads it or skips it).
+and the fourcc.  A folder's `.jpg`, `.jpeg`, `.png` and `.bmp` frames
+are read as `cv2.imread` reads them (`data/images.py`); a file the
+image reader refuses raises naming it (JAX's `cv2.imread` reads it or
+skips it).
 
 Each stage is timed by a `utils.profiling.StageTimer`: "demux" and
 "decode" (per frame), the detector's and pose net's stages

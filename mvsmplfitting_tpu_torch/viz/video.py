@@ -136,8 +136,10 @@ def export_video(frame_paths: Sequence[str], out_path: str,
                  fps: float = 30.0) -> str:
     """Stitch overlay images into a Motion-JPEG AVI at `out_path` with its
     extension replaced by `.avi`; frames of another size than the first
-    are resized as `cv2.resize(img, (w, h))` resizes them.  Returns the
-    path written."""
+    are resized as `cv2.resize(img, (w, h))` resizes them, and a missing
+    frame after the first is skipped, as JAX skips the None that
+    `cv2.imread` gives it.  A missing first frame, and a file the reader
+    refuses, raise.  Returns the path written."""
     if not frame_paths:
         raise ValueError("no frames to export")
     first = read_image(frame_paths[0])
@@ -145,7 +147,10 @@ def export_video(frame_paths: Sequence[str], out_path: str,
     writer = VideoWriter(out_path, fps, (w, h))
     try:
         for i, p in enumerate(frame_paths):
-            img = first if i == 0 else read_image(p)
+            try:
+                img = first if i == 0 else read_image(p)
+            except FileNotFoundError:
+                continue
             if img.shape[:2] != (h, w):
                 img = resize_linear_u8(torch.from_numpy(img), w, h).numpy()
             writer.write(img)

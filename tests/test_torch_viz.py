@@ -1,7 +1,8 @@
 """The port's overlay surface against OpenCV and the JAX package, on the
 CPU: the drawing primitives (`viz/draw.py`, `csrc/draw.cpp`), the JPEG
 writer (`data/images.py:encode_jpeg`, `csrc/jpeg_encode.cpp`), the
-`fx`/`fy` resize, the mesh overlays, `vis_frame`, the video writer and
+`fx`/`fy` resize and its exact halving (the GUI's 1280-px views), the
+mesh overlays, `vis_frame`, the video writer and
 `models/vposer.py:encode_mean`.
 
 Tolerances and why: everything drawn or encoded is compared bitwise (the
@@ -30,14 +31,15 @@ from mvsmplfitting_tpu.viz import overlay as JO  # noqa: E402
 from mvsmplfitting_tpu.viz import skeletons as JS  # noqa: E402
 from mvsmplfitting_tpu_torch.data import images as I  # noqa: E402
 from mvsmplfitting_tpu_torch.detect.preprocess import (  # noqa: E402
-    resize_linear_u8_by)
+    resize_area_half_u8, resize_linear_u8_by)
 from mvsmplfitting_tpu_torch.viz import draw as D  # noqa: E402
 from mvsmplfitting_tpu_torch.viz import overlay as TO  # noqa: E402
 from mvsmplfitting_tpu_torch.viz import skeletons as TS  # noqa: E402
 from mvsmplfitting_tpu_torch.viz import video as TV  # noqa: E402
 
 HERE = os.path.dirname(__file__)
-VIEWS = os.path.join(HERE, "fixtures", "images", "views")
+IMAGES = os.path.join(HERE, "fixtures", "images")
+VIEWS = os.path.join(IMAGES, "views")
 OVERLAY = os.path.join(HERE, "fixtures", "overlay")
 sys.path.insert(0, os.path.join(HERE, "..", "tools"))
 import make_overlay_fixtures as MF  # noqa: E402
@@ -232,8 +234,97 @@ def test_resize_by_scale_matches_cv2():
         want = cv2.resize(src, None, fx=s, fy=s)
         got = resize_linear_u8_by(torch.from_numpy(src), s, s).numpy()
         np.testing.assert_array_equal(got, want, str((src.shape, s)))
-    with pytest.raises(ValueError, match="INTER_AREA"):
-        resize_linear_u8_by(torch.from_numpy(img), 0.5, 0.5)
+    # An exact halving, which OpenCV sends to INTER_AREA, is cv2's too.
+    for src in (img, odd):
+        np.testing.assert_array_equal(
+            resize_linear_u8_by(torch.from_numpy(src), 0.5, 0.5).numpy(),
+            cv2.resize(src, None, fx=0.5, fy=0.5), str(src.shape))
+
+
+@pytest.mark.parametrize("shape", [(8 + a, 12 + b) for a in range(4)
+                                   for b in range(4)]
+                         + [(720, 1280), (1280, 720)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_exact_halving_matches_cv2(shape):
+    """`cv2.resize(img, None, fx=0.5, fy=0.5)`: both sides at every
+    residue mod 4 (3 mod 4 gives a last row or column of one source row
+    or column, 1 mod 4 drops one), and the GUI's 720p views."""
+    rng = np.random.default_rng(shape[0] * 7 + shape[1])
+    src = rng.integers(0, 256, shape + (3,), dtype=np.uint8)
+    want = cv2.resize(src, None, fx=0.5, fy=0.5)
+    got = resize_area_half_u8(torch.from_numpy(src)).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        resize_linear_u8_by(torch.from_numpy(src), 0.5, 0.5).numpy(), want)
+
+
+def _gui_app(image: str, hw, monkeypatch):
+    """The port's GUI app for one view of size `hw` showing `image`, built
+    without a session (as `tests/test_torch_adjust_gui.py` builds it),
+    whose body forward gives the committed overlay body, with the camera
+    `tools/make_image_fixtures.py` records for the 1280x720 view."""
+    import threading
+    import types
+
+    from mvsmplfitting_tpu_torch.cli import adjust_gui as G
+    from mvsmplfitting_tpu_torch.fitting.stages import FitResult
+    from mvsmplfitting_tpu_torch.models.assets import synthetic_smpl
+    from mvsmplfitting_tpu_torch.models.smpl import SMPLParams
+    with open(os.path.join(IMAGES, "gui_halving.json")) as f:
+        rec = json.load(f)
+    verts = np.load(os.path.join(OVERLAY, "verts.npy"))
+    monkeypatch.setattr(G, "smpl_forward", lambda *a: (
+        torch.from_numpy(verts)[None], None))
+    cam = {k: torch.tensor([rec["camera"][k]]) for k in rec["camera"]}
+    if hw[0] > hw[1]:                   # portrait: the centre turned
+        cam["center"] = cam["center"].flip(-1)
+    app = G.AdjustApp.__new__(G.AdjustApp)
+    app.sess = types.SimpleNamespace(assets=synthetic_smpl("smpl",
+                                                           device="cpu"),
+                                     cameras=types.SimpleNamespace(**cam))
+    app.frame = types.SimpleNamespace(img_hw=hw, img_paths=[image])
+    app.max_size, app.override = 640, None
+    app.lock = threading.Lock()
+    app.keypoints = np.zeros((1, 17, 3), np.float32)
+    z = torch.zeros((1, 3))
+    app.result = FitResult(
+        params=SMPLParams(betas=torch.zeros((1, 10)), global_orient=z,
+                          body_pose=torch.zeros((1, 69)), transl=z,
+                          scale=torch.ones(1)),
+        body_pose=torch.zeros((1, 69)), z=torch.zeros((1, 32)),
+        loss=torch.tensor([1.0]), stage_losses=torch.tensor([[1.0]]),
+        lm_iters=torch.tensor([[1]]))
+    return app, rec, verts, {k: v[0].numpy() for k, v in cam.items()}
+
+
+@pytest.mark.parametrize("orient", ["1280x720", "720x1280"])
+def test_gui_state_halves_1280_views(tmp_path, monkeypatch, orient):
+    """`AdjustApp.state()` on a 1280-px view (scale exactly 0.5) serves
+    `cv2.imencode(cv2.resize(render, None, fx=0.5, fy=0.5), q80)`; the
+    landscape view's JPEG is the sha256 `chip_smoke.py` checks."""
+    import base64
+    image = os.path.join(IMAGES, "jpeg_prog_420_1280x720_q90.jpg")
+    hw = (720, 1280)
+    if orient == "720x1280":
+        image = str(tmp_path / "portrait.jpg")
+        cv2.imwrite(image, cv2.imread(os.path.join(
+            IMAGES, "jpeg_prog_420_1280x720_q90.jpg")).transpose(1, 0, 2))
+        hw = (1280, 720)
+    app, rec, verts, cam = _gui_app(image, hw, monkeypatch)
+    view = app.state()["views"][0]
+    got = base64.b64decode(view["img"])
+    faces = app.sess.assets.faces.numpy()
+    render = JO.render_mesh_overlay(cv2.imread(image), verts, faces,
+                                    cam["rotation"], cam["translation"],
+                                    cam["focal"], cam["center"])
+    half = cv2.resize(render, None, fx=0.5, fy=0.5)
+    assert (view["height"], view["width"]) == half.shape[:2] == (
+        hw[0] // 2, hw[1] // 2)
+    assert got == cv2.imencode(".jpg", half, [cv2.IMWRITE_JPEG_QUALITY,
+                                              80])[1].tobytes()
+    if orient == "1280x720":
+        assert hashlib.sha256(got).hexdigest() == rec["sha256"]
 
 
 # ---------------------------------------------------------- overlays
@@ -413,6 +504,36 @@ def test_export_video_reads_back(tmp_path):
     assert n == 4
     with pytest.raises(ValueError):
         TV.export_video([], str(tmp_path / "x.avi"))
+
+
+def test_export_video_skips_missing_frame(tmp_path):
+    """A missing later frame is skipped, as JAX skips the None of
+    `cv2.imread` (the clip is one frame shorter); a missing first frame
+    and a file the reader refuses raise."""
+    paths = []
+    for v in range(3):
+        p = str(tmp_path / f"{v}.jpg")
+        cv2.imwrite(p, cv2.resize(cv2.imread(os.path.join(
+            VIEWS, f"Camera0{v}.jpg")), (96, 54)))
+        paths.append(p)
+    os.remove(paths[1])
+    out = TV.export_video(paths, str(tmp_path / "clip.avi"))
+    cap = cv2.VideoCapture(out, cv2.CAP_OPENCV_MJPEG)
+    assert cap.get(cv2.CAP_PROP_FRAME_COUNT) == 2
+    for p in (paths[0], paths[2]):
+        ok, frame = cap.read()
+        assert ok
+        want = cv2.imdecode(np.frombuffer(I.encode_jpeg(cv2.imread(p), 95),
+                                          np.uint8), cv2.IMREAD_COLOR)
+        np.testing.assert_array_equal(frame, want, p)
+    cap.release()
+    with pytest.raises(FileNotFoundError):
+        TV.export_video(paths[1:], str(tmp_path / "none.avi"))
+    bad = str(tmp_path / "bad.jpg")
+    with open(bad, "wb") as f:
+        f.write(b"GIF89a")
+    with pytest.raises(I.ImageError, match="bad.jpg"):
+        TV.export_video([paths[0], bad], str(tmp_path / "bad.avi"))
 
 
 # ---------------------------------------------------------- fixtures

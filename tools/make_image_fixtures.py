@@ -13,11 +13,32 @@ it writes are committed.  It writes
   90;
 * the small files the reader tests decode: JPEG 4:4:4, 4:2:2, 4:2:0,
   4:4:0, 4:1:1, gray and a restart interval at odd sizes and qualities
-  75/95, a progressive JPEG (refused), EXIF-rotated JPEGs, and PNG
-  gray, RGB, RGBA, 16-bit and palette images;
+  75/95, EXIF-rotated JPEGs, PNG gray, RGB, RGBA, 16-bit and palette
+  images;
+* progressive JPEGs (`IMWRITE_JPEG_PROGRESSIVE`, libjpeg's simple
+  progression with successive approximation): 4:2:0, 4:4:4 and gray at
+  odd sizes, one with a restart interval, a 1920x1080 view (the render
+  of view 1) and a 1280x720 crop of view 2 (the GUI's halving); and one
+  cut after its third-last scan, which the port must refuse (libjpeg
+  would smooth its blocks);
+* BMPs written here (`bmp_bytes`): 1, 4 and 8 bits a pixel with a
+  palette (an 8-bit gray one among them), 24 bits bottom-up and
+  top-down, 32 bits, 16 bits as 5-5-5 and as 5-6-5 bit fields, 32-bit
+  bit fields behind a V5 header, a V4 header; and an RLE8 one, which
+  the port must refuse;
+* Adam7-interlaced PNGs at depths 1, 8 and 16, and PNGs whose eXIf
+  chunk says orientation 3, 6 or 8;
 * `decoded.json`: per file its shape and the sha256 of `cv2.imread`'s
   array (None where cv2 refuses or the port must refuse), so the reader
-  can be held to OpenCV where OpenCV is not installed.
+  can be held to OpenCV where OpenCV is not installed;
+* `gui_halving.json`: for the 1280x720 crop, the camera and the sha256
+  of `cv2.imencode(".jpg", cv2.resize(render, None, fx=0.5, fy=0.5),
+  [IMWRITE_JPEG_QUALITY, 80])`, `render` being the port's
+  `render_mesh_overlay` of `tests/fixtures/overlay/verts.npy` on it:
+  the JPEG the adjustment GUI serves for such a view.
+
+Files already written with other bytes are overwritten; the run prints
+which changed.
 """
 
 from __future__ import annotations
@@ -98,10 +119,9 @@ def texture(h: int, w: int, seed: int) -> np.ndarray:
                    255).astype(np.uint8)
 
 
-def png_bytes(rows, width: int, height: int, depth: int, color: int,
-              palette=None) -> bytes:
-    """A PNG whose rows use filter types 0-4 in turn."""
-    bpp = max(1, {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color] * depth // 8)
+def filter_rows(rows, bpp: int) -> bytes:
+    """PNG image data of `rows` (byte strings), using filter types 0-4 in
+    turn."""
     raw = bytearray()
     prev = bytes(len(rows[0]))
     for y, row in enumerate(rows):
@@ -126,17 +146,110 @@ def png_bytes(rows, width: int, height: int, depth: int, color: int,
             out.append((x - p) & 255)
         raw += bytes([ft]) + bytes(out)
         prev = row
+    return bytes(raw)
 
-    def chunk(tag, body):
-        return (struct.pack(">I", len(body)) + tag + body
-                + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
 
-    data = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(
-        ">IIBBBBB", width, height, depth, color, 0, 0, 0))
+def png_chunk(tag: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + tag + body
+            + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
+
+
+def _png(raw: bytes, width: int, height: int, depth: int, color: int,
+         palette, interlace: int, exif) -> bytes:
+    data = b"\x89PNG\r\n\x1a\n" + png_chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", width, height, depth, color, 0, 0, interlace))
+    if exif is not None:
+        data += png_chunk(b"eXIf", exif_tiff(exif))
     if palette is not None:
-        data += chunk(b"PLTE", palette.tobytes())
-    return data + chunk(b"IDAT", zlib.compress(bytes(raw))) \
-        + chunk(b"IEND", b"")
+        data += png_chunk(b"PLTE", palette.tobytes())
+    return data + png_chunk(b"IDAT", zlib.compress(raw)) \
+        + png_chunk(b"IEND", b"")
+
+
+def _bpp(depth: int, color: int) -> int:
+    return max(1, {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color] * depth // 8)
+
+
+def png_bytes(rows, width: int, height: int, depth: int, color: int,
+              palette=None, exif=None) -> bytes:
+    """A PNG whose rows use filter types 0-4 in turn; `exif`, an EXIF
+    orientation, adds an eXIf chunk."""
+    return _png(filter_rows(rows, _bpp(depth, color)), width, height, depth,
+                color, palette, 0, exif)
+
+
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))   # x0, y0, dx, dy
+
+
+def pack_row(samples, depth: int) -> bytes:
+    """One row of samples (integers, channels interleaved) at `depth`."""
+    if depth < 8:
+        return pack_bits(samples, depth)
+    return np.asarray(samples).astype(">u2" if depth == 16 else np.uint8
+                                      ).tobytes()
+
+
+def adam7_png_bytes(samples: np.ndarray, depth: int, color: int,
+                    palette=None) -> bytes:
+    """An Adam7-interlaced PNG of `samples` (H, W, channels): each pass
+    filtered on its own, empty passes left out."""
+    h, w = samples.shape[:2]
+    raw = b""
+    for x0, y0, dx, dy in ADAM7:
+        sub = samples[y0::dy, x0::dx]
+        if sub.size:
+            raw += filter_rows([pack_row(r.reshape(-1), depth) for r in sub],
+                               _bpp(depth, color))
+    return _png(raw, w, h, depth, color, palette, 1, None)
+
+
+def bmp_bytes(rows, width: int, height: int, bpp: int, palette=None,
+              compression: int = 0, masks=None, header: int = 40,
+              top_down: bool = False, pixels: bytes = None) -> bytes:
+    """A BMP of `rows` (packed row bytes, top row first), each row padded
+    to 4 bytes and stored bottom-up unless `top_down`; `palette` (N, 3)
+    BGR entries; `header` 40 (BITMAPINFOHEADER, bit-field `masks` after
+    it), 52 or 56 (V2, V3), 108 (V4) or 124 (V5; masks inside from 52
+    on); `pixels` replaces the
+    stored rows (an RLE stream)."""
+    if pixels is None:
+        stride = (width * bpp + 31) // 32 * 4
+        pixels = b"".join(r + bytes(stride - len(r))
+                          for r in (rows if top_down else rows[::-1]))
+    pal = b"" if palette is None else b"".join(
+        bytes([int(b), int(g), int(r), 0]) for b, g, r in palette)
+    info = struct.pack("<IiiHHIIiiII", header, width,
+                       -height if top_down else height, 1, bpp, compression,
+                       len(pixels), 2835, 2835,
+                       0 if palette is None else len(palette), 0)
+    m = tuple(masks or (0, 0, 0)) + (0,) * 4
+    if header == 40:
+        extra = struct.pack("<III", *m[:3]) if compression == 3 else b""
+    elif header in (52, 56):
+        extra = struct.pack("<IIII", *m[:4])[:header - 40]
+    else:
+        extra = struct.pack("<IIII", *m[:4]) + b"BGRs"
+        extra += bytes(header - 40 - len(extra))
+    off = 14 + len(info) + len(extra) + len(pal)
+    return (b"BM" + struct.pack("<IHHI", off + len(pixels), 0, 0, off)
+            + info + extra + pal + pixels)
+
+
+def rle8(idx: np.ndarray) -> bytes:
+    """An RLE8 stream of the palette indices `idx` (top row first): runs
+    of equal pixels, an end-of-line after each row, end of bitmap."""
+    out = bytearray()
+    for row in idx[::-1]:
+        x = 0
+        while x < len(row):
+            n = 1
+            while x + n < len(row) and n < 255 and row[x + n] == row[x]:
+                n += 1
+            out += bytes([n, int(row[x])])
+            x += n
+        out += b"\0\0"
+    return bytes(out + b"\0\1")
 
 
 def pack_bits(values, depth: int) -> bytes:
@@ -145,13 +258,153 @@ def pack_bits(values, depth: int) -> bytes:
     return bytes(int(bits[i:i + 8], 2) for i in range(0, len(bits), 8))
 
 
-def with_exif(jpeg: bytes, orientation: int) -> bytes:
-    tiff = (b"II" + struct.pack("<HI", 42, 8) + struct.pack("<H", 1)
+def exif_tiff(orientation: int) -> bytes:
+    """A little-endian TIFF block holding one Orientation tag."""
+    return (b"II" + struct.pack("<HI", 42, 8) + struct.pack("<H", 1)
             + struct.pack("<HHIHH", 0x112, 3, 1, orientation, 0)
             + struct.pack("<I", 0))
-    app1 = b"Exif\0\0" + tiff
+
+
+def with_exif(jpeg: bytes, orientation: int) -> bytes:
+    app1 = b"Exif\0\0" + exif_tiff(orientation)
     return (jpeg[:2] + b"\xff\xe1" + struct.pack(">H", len(app1) + 2)
             + app1 + jpeg[2:])
+
+
+# Files OpenCV decodes and the port refuses (recorded as None).
+PORT_REFUSES = ("jpeg_prog_incomplete.jpg", "bmp_rle8_13x7.bmp")
+GUI_IMAGE = "jpeg_prog_420_1280x720_q90.jpg"
+
+
+def progressive_jpegs(cv2, files: dict) -> dict:
+    """Progressive JPEGs; the views are decoded from `files`."""
+    Q = cv2.IMWRITE_JPEG_QUALITY
+    S = cv2.IMWRITE_JPEG_SAMPLING_FACTOR
+    P = [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]
+
+    def enc(img, q, *extra):
+        return cv2.imencode(".jpg", img, [Q, q, *P, *extra])[1].tobytes()
+
+    def view(v):
+        return cv2.imdecode(np.frombuffer(files[f"views/Camera0{v}.jpg"],
+                                          np.uint8), cv2.IMREAD_COLOR)
+
+    out = {
+        "jpeg_prog_420_121x163_q75.jpg": enc(
+            texture(121, 163, 31), 75, S,
+            cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420),
+        "jpeg_prog_444_121x163_q95.jpg": enc(
+            texture(121, 163, 32), 95, S,
+            cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444),
+        "jpeg_prog_gray_37x45_q90.jpg": enc(texture(37, 45, 33)[..., 0], 90),
+        "jpeg_prog_420_9x3_q90.jpg": enc(texture(9, 3, 34), 90),
+        "jpeg_prog_420_rst2_83x61_q90.jpg": enc(
+            texture(83, 61, 35), 90, cv2.IMWRITE_JPEG_RST_INTERVAL, 2),
+        "jpeg_prog_420_1920x1080_q90.jpg": enc(view(1), 90),
+        GUI_IMAGE: enc(view(2)[180:900, 320:1600], 90),
+    }
+    # The scans after the third-last are dropped: some coefficients stay
+    # unrefined, and libjpeg would smooth the blocks.
+    full = enc(texture(40, 56, 36), 90)
+    sos = [i for i in range(len(full) - 1) if full[i:i + 2] == b"\xff\xda"]
+    out["jpeg_prog_incomplete.jpg"] = full[:sos[-2]] + b"\xff\xd9"
+    return out
+
+
+def bmps() -> dict:
+    """13x7 BMPs (rows padded to 4 bytes) in every accepted layout, and an
+    RLE8 one."""
+    rng = np.random.default_rng(11)
+    h, w = 7, 13
+    out = {}
+    for bpp in (1, 4, 8):
+        idx = rng.integers(0, 1 << bpp, (h, w))
+        pal = rng.integers(0, 256, (1 << bpp, 3))
+        out[f"bmp_{bpp}bpp_13x7.bmp"] = bmp_bytes(
+            [pack_bits(r, bpp) for r in idx], w, h, bpp, pal)
+    gray = np.repeat(np.arange(256)[:, None], 3, 1)
+    out["bmp_8bpp_gray_13x7.bmp"] = bmp_bytes(
+        [pack_bits(r, 8) for r in idx], w, h, 8, gray)
+    out["bmp_rle8_13x7.bmp"] = bmp_bytes(None, w, h, 8, pal, compression=1,
+                                         pixels=rle8(idx))
+    bgr = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    rows = [r.tobytes() for r in bgr]
+    out["bmp_24bpp_13x7.bmp"] = bmp_bytes(rows, w, h, 24)
+    out["bmp_24bpp_topdown_13x7.bmp"] = bmp_bytes(rows, w, h, 24,
+                                                  top_down=True)
+    out["bmp_24bpp_v4_13x7.bmp"] = bmp_bytes(rows, w, h, 24, header=108)
+    bgra = [r.tobytes() for r in rng.integers(0, 256, (h, w, 4),
+                                              dtype=np.uint8)]
+    out["bmp_32bpp_13x7.bmp"] = bmp_bytes(bgra, w, h, 32)
+    out["bmp_32bpp_v5_rgba_13x7.bmp"] = bmp_bytes(
+        bgra, w, h, 32, compression=3, header=124,
+        masks=(0xFF, 0xFF00, 0xFF0000, 0xFF000000))
+    words = [r.astype("<u2").tobytes()
+             for r in rng.integers(0, 1 << 16, (h, w))]
+    out["bmp_16bpp_555_13x7.bmp"] = bmp_bytes(words, w, h, 16)
+    out["bmp_16bpp_565_13x7.bmp"] = bmp_bytes(
+        words, w, h, 16, compression=3, masks=(0xF800, 0x7E0, 0x1F))
+    return out
+
+
+def more_pngs() -> dict:
+    """Adam7-interlaced PNGs at depths 1, 8 and 16, and PNGs with an
+    eXIf orientation."""
+    rng = np.random.default_rng(12)
+    out = {
+        "png_adam7_gray1_5x3.png": adam7_png_bytes(
+            rng.integers(0, 2, (3, 5, 1)), 1, 0),
+        "png_adam7_bgr8_37x23.png": adam7_png_bytes(
+            rng.integers(0, 256, (23, 37, 3)), 8, 2),
+        "png_adam7_rgba16_19x13.png": adam7_png_bytes(
+            rng.integers(0, 1 << 16, (13, 19, 4)), 16, 6),
+    }
+    rgb = rng.integers(0, 256, (4, 6, 3))
+    for o in (3, 6, 8):
+        out[f"png_exif_orientation{o}.png"] = png_bytes(
+            [pack_row(r.reshape(-1), 8) for r in rgb], 6, 4, 8, 2, exif=o)
+    return out
+
+
+def gui_halving(cv2, image_path: str) -> dict:
+    """The JPEG the adjustment GUI serves for the 1280x720 view: the
+    committed body rendered with view 0's rotation and translation and
+    the focal length and centre scaled to 1280x720, halved by cv2 and
+    encoded at quality 80.  Faces of equal depth come in pairs whose
+    order does not change the render, so any sort gives its bytes."""
+    from mvsmplfitting_tpu_torch.models.assets import synthetic_smpl
+    from mvsmplfitting_tpu_torch.viz.overlay import (_project, face_order,
+                                                     render_mesh_overlay)
+
+    fixtures = os.path.dirname(os.path.dirname(image_path))
+    with open(os.path.join(fixtures, "overlay", "golden.json")) as f:
+        cam = json.load(f)["render"]["camera"]
+    verts = np.load(os.path.join(fixtures, "overlay", "verts.npy"))
+    faces = synthetic_smpl("smpl", device="cpu").faces.numpy()
+    R, t = (np.asarray(cam[k], np.float32) for k in ("rotation",
+                                                     "translation"))
+    focal = np.asarray([800.0, 800.0], np.float32)
+    center = np.asarray([640.0, 360.0], np.float32)
+    img = cv2.imread(image_path)
+    # The sort may put faces of equal depth either way: each tie is a
+    # pair, and the render is the same with every pair turned round.
+    tri = _project(R, t, focal, center, verts)[1][faces].mean(1)
+    assert np.unique(tri, return_counts=True)[1].max() <= 2
+    turned = np.arange(len(tri))[::-1]
+    turned = turned[np.argsort(-tri[turned], kind="stable")]
+    _, _, order = face_order(img.shape[:2], verts, faces, R, t, focal,
+                             center)
+    render = render_mesh_overlay(img, verts, faces, R, t, focal, center)
+    assert np.array_equal(render, render_mesh_overlay(
+        img, verts, faces, R, t, focal, center, order=turned))
+    half = cv2.resize(render, None, fx=0.5, fy=0.5)
+    jpg = cv2.imencode(".jpg", half, [cv2.IMWRITE_JPEG_QUALITY, 80])[1]
+    return {"image": os.path.basename(image_path),
+            "camera": {"rotation": R.tolist(), "translation": t.tolist(),
+                       "focal": focal.tolist(), "center": center.tolist()},
+            "faces_drawn": int(len(order)),
+            "painted": int((render != img).any(-1).sum()),
+            "sha256": hashlib.sha256(jpg.tobytes()).hexdigest()}
 
 
 def main() -> int:
@@ -213,22 +466,33 @@ def main() -> int:
     files["png_gray1.png"] = png_bytes([pack_bits(r, 1) for r in idx], w, h,
                                        1, 0)
 
+    files.update(progressive_jpegs(cv2, files))
+    files.update(bmps())
+    files.update(more_pngs())
+
     decoded = {}
+    changed = []
     for name, data in sorted(files.items()):
         path = os.path.join(out, name)
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                if f.read() != data:
+                    changed.append(name)
         with open(path, "wb") as f:
             f.write(data)
-        arr = cv2.imread(path)
-        if name == "jpeg_progressive.jpg":
-            arr = None          # cv2 decodes it; the port refuses it
+        arr = None if name in PORT_REFUSES else cv2.imread(path)
         decoded[name] = (None if arr is None else {
             "shape": list(arr.shape),
             "sha256": hashlib.sha256(np.ascontiguousarray(arr).tobytes()
                                      ).hexdigest()})
     with open(os.path.join(out, "decoded.json"), "w") as f:
         json.dump(decoded, f, indent=1, sort_keys=True)
+    with open(os.path.join(out, "gui_halving.json"), "w") as f:
+        json.dump(gui_halving(cv2, os.path.join(out, GUI_IMAGE)), f,
+                  indent=1, sort_keys=True)
     total = sum(len(d) for d in files.values())
-    print(f"wrote {len(files)} files, {total} bytes, to {out}")
+    print(f"wrote {len(files)} files, {total} bytes, to {out}; changed: "
+          f"{changed or 'none'}")
     return 0
 
 
