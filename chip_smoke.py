@@ -225,9 +225,17 @@ Phases (each prints one line; any failure exits non-zero):
      per-stage seconds a frame (demux, decode, the nets' stages, json,
      draw, encode, results), 12 JSONs read back by the fitting data
      layer's reader, the results file (one entry a person) and the drawn
-     video re-read (12 frames); (e) `--video` on a folder of a baseline
-     JPEG, a progressive JPEG and a 24-bit BMP frame, each read to
-     `read_image`'s sha256, 3 JSONs; (c) `--pose_cfg` with three configs in
+     video (Motion-JPEG: `--out_video drawn.webm`, JAX's fallback name)
+     re-read (12 frames); (e) `--video` on a folder of a baseline JPEG, a
+     progressive JPEG and a 24-bit BMP frame, each read to
+     `read_image`'s sha256, 3 JSONs; (f) MPEG-4 Part 2: every committed
+     clip of `tests/fixtures/video` (cv2's `mp4v` in MP4/M4V/MOV, `FMP4`,
+     `XVID`, `DIVX` and `mp4v` AVIs) decoded to cv2's recorded sha256;
+     the 1920x1080 MP4's demux, decode and BGR conversion ms a frame, 6
+     of its frames through the encoder (ms a frame, bytes); `--video
+     clip.mp4 --out_video drawn.mp4` on it: frames/s, per-stage seconds,
+     12 JSONs, the drawn MP4 re-read by the port (12 frames); no B1-B4
+     launch; (c) `--pose_cfg` with three configs in
      the reference's layout, all 256x192: FastPose-DCN (halpe26,
      CONV_DIM 256, STAGE_WITH_DCN [F, T, T, T], offset convs at 3x gain:
      their |offset| mean and max and the share of taps outside the
@@ -2125,6 +2133,9 @@ def write_bmp24(path: str, img: np.ndarray) -> None:
         f.write(b"BM" + struct.pack("<IHHI", 54 + rows.size, 0, 0, 54)
                 + info + rows.tobytes())
 IMAGE_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "images")
+VIDEO_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "video")
+ST_MPEG4_CLIP = "mp4v_1920x1080.mp4"   # [stream] (f): 12 frames
+ST_ENCODE_FRAMES = 6   # [stream] (f): 1080p frames timed through the encoder
 
 
 def _obj_bias_shift(decoded: torch.Tensor, thresh: float, target: int
@@ -2940,9 +2951,9 @@ ST_OFFSET_GAIN = 3.0
 
 
 def _mux(path, jpegs, width, height, fps=30.0):
-    from mvsmplfitting_tpu_torch.viz.video import MjpegAviWriter
+    from mvsmplfitting_tpu_torch.viz.video import AviWriter
     with open(path, "wb") as f:
-        avi = MjpegAviWriter(f, width, height, fps)
+        avi = AviWriter(f, width, height, fps)
         for j in jpegs:
             avi.write(j)
         avi.close()
@@ -3119,7 +3130,9 @@ def stream_phase(dev, launches: dict, weights) -> None:
         clip = os.path.join(tmp, "clip.avi")
         _mux(clip, [raw[i % 6] for i in range(ST_FRAMES)], w, h)
         ws = os.path.join(tmp, "ws")
-        out_video = os.path.join(tmp, "drawn.avi")
+        # a name cv2's mp4v writer cannot open: Motion-JPEG at drawn.avi
+        # (JAX's fallback), the writer (f) does not drive
+        out_video = os.path.join(tmp, "drawn.webm")
         res = os.path.join(tmp, "results")
         timer, wall = run_cli([
             "--video", clip, "--out_video", out_video, "--results_dir", res,
@@ -3133,7 +3146,9 @@ def stream_phase(dev, launches: dict, weights) -> None:
         with open(os.path.join(res, "alphapose-results.json")) as f:
             results = json.load(f)
         assert len(results) == sum(people), (len(results), people)
-        drawn = list(V.read_video(out_video))
+        drawn_avi = os.path.join(tmp, "drawn.avi")
+        assert V.avi_info(drawn_avi).codec == "mjpeg"
+        drawn = list(V.read_video(drawn_avi))
         assert len(drawn) == ST_FRAMES and drawn[0][1].shape == (h, w, 3)
         dev_s = timer.device_totals()
         stages = ("demux", "decode", "letterbox", "detector", "nms", "crop",
@@ -3174,6 +3189,84 @@ def stream_phase(dev, launches: dict, weights) -> None:
             decode_s_each=",".join(f"{v:.4f}"
                                    for v in timer.timings.get("decode", [])),
             launches_b1_b4=0, card=card)
+
+        # ---- (f) MPEG-4: the committed clips, then --video clip.mp4 ----------
+        from mvsmplfitting_tpu_torch.data import mpeg4 as E4
+        with open(os.path.join(VIDEO_FIXTURES, "decoded.json")) as f:
+            record = json.load(f)
+        reset_launches(JK, VK, SK)
+        t_clips = time.perf_counter()
+        for name, rec in sorted(record.items()):
+            got = [sha(f) for _, f in V.read_video(
+                os.path.join(VIDEO_FIXTURES, name))]
+            assert got == rec["bgr_sha256"], f"[stream] (f) {name} differs"
+        t_clips = time.perf_counter() - t_clips
+        big = os.path.join(VIDEO_FIXTURES, ST_MPEG4_CLIP)
+        stream = V.open_video(big)
+        # `frame_source`'s own demux and decode; a hook on the decoder
+        # times its codec share, the rest of each frame is the BGR
+        dec = stream.decoder()
+        codec_s = []
+        codec = dec.dec.decode
+
+        def timed_codec(data):
+            t0 = time.perf_counter()
+            planes = codec(data)
+            codec_s.append(time.perf_counter() - t0)
+            return planes
+
+        dec.dec.decode = timed_codec
+        demux, whole, frames = [], [], []
+        packets = stream.packets()
+        while True:
+            t0 = time.perf_counter()
+            data = next(packets, None)
+            if data is None:
+                break
+            demux.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            frames += dec.decode(data)
+            whole.append(time.perf_counter() - t0)
+        frames += dec.flush()
+        decode, convert = codec_s, [a - b for a, b in zip(whole, codec_s)]
+        assert [sha(f) for f in frames] == record[ST_MPEG4_CLIP]["bgr_sha256"]
+        enc = E4.Mpeg4Encoder(stream.width, stream.height, 30.0)
+        encode, sizes = [], []
+        for f in frames[:ST_ENCODE_FRAMES]:
+            t0 = time.perf_counter()
+            data, _ = enc.encode(f)
+            encode.append(time.perf_counter() - t0)
+            sizes.append(len(data))
+        got = read_launches(JK, VK, SK)
+        launches["stream_mpeg4_codec"] = got
+        assert not any(got.values()), f"[stream] (f) codec launched {got}"
+        mp4_ws = os.path.join(tmp, "mp4_ws")
+        drawn_mp4 = os.path.join(tmp, "drawn.mp4")
+        timer, wall = run_cli([
+            "--video", big, "--out_video", drawn_mp4, "--data_folder", mp4_ws,
+            "--yolox_ckpt", yolox_ckpt, "--pose_ckpt", pose_ckpt, "--device",
+            dev.type], "mp4")
+        n_mp4 = len(record[ST_MPEG4_CLIP]["bgr_sha256"])
+        jsons = sorted(os.listdir(os.path.join(mp4_ws, "keypoints", "stream")))
+        assert jsons == [f"{i:06d}_keypoints.json" for i in range(n_mp4)]
+        with open(drawn_mp4, "rb") as f:
+            assert f.read(12)[4:12] == b"ftypisom", "drawn.mp4 is not MP4"
+        drawn = list(V.read_video(drawn_mp4))
+        assert len(drawn) == n_mp4 and drawn[0][1].shape == (
+            stream.height, stream.width, 3), (len(drawn), drawn[0][1].shape)
+        med = lambda v: f"{1e3 * float(np.median(v)):.3f}"
+        log("stream", part="mpeg4", clips=len(record),
+            equal="cv2 sha256 of every clip", clips_s=f"{t_clips:.3f}",
+            size=f"{stream.width}x{stream.height}", frames=n_mp4,
+            demux_ms=med(demux), decode_ms=med(decode),
+            bgr_ms=med(convert), encode_ms=med(encode),
+            encode_frames=len(encode), encode_bytes=",".join(map(str, sizes)),
+            video_fps=f"{n_mp4 / wall:.3f}", wall_s=f"{wall:.3f}",
+            loop_fps=f"{n_mp4 / sum(sum(v) for v in timer.timings.values()):.3f}",
+            per_frame_s=per_frame(timer, n_mp4, (
+                "demux", "decode", "letterbox", "detector", "nms", "crop",
+                "pose", "heatmap", "json", "draw", "encode", "results")),
+            drawn_frames=len(drawn), launches_b1_b4=0, card=card)
 
         # ---- (c) --pose_cfg: three reference configs ------------------------
         cfg_ws = os.path.join(tmp, "cfg_ws")

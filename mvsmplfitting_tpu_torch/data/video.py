@@ -1,18 +1,31 @@
-"""Motion-JPEG AVI reading without OpenCV (the video half of JAX's
-`detect/stream.py:frame_source`, which reads with `cv2.VideoCapture`).
+"""Video file reading without OpenCV (the video half of JAX's
+`detect/stream.py:frame_source`, which reads with `cv2.VideoCapture`):
+Motion-JPEG in AVI, and MPEG-4 Part 2 Simple Profile in AVI or in an
+ISO base media file (MP4, M4V, MOV; `data/mp4.py`).
 
-`avi_info(path)` reads a RIFF/AVI file's headers and refuses, naming the
-file and the fourcc, a first video stream that is not Motion-JPEG
-(MPEG-4, H.264, ...); `avi_frames(path)` then streams its frames chunk
-by chunk, never holding the file: the `##dc`/`##db` chunks of that
-stream in the order of the `movi` lists (inside `rec ` lists too), then
-those of the OpenDML `AVIX` continuation RIFFs; other streams' chunks,
-`JUNK` and index chunks are skipped.  Each frame decodes with
-`images.decode_jpeg`, which takes frames without a DHT segment (the
-standard tables).  The yardstick is OpenCV's own Motion-JPEG reader
-(`cv2.CAP_OPENCV_MJPEG`), which returns `cv2.imdecode` of each chunk;
-`cv2.VideoCapture(path)` with OpenCV's default backend decodes through
-FFmpeg, whose JPEG decoder rounds otherwise (by up to ~20 levels).
+`open_video(path)` tells the container by the file's bytes and returns
+a `VideoStream`: its size and frame rate, its packets (`packets()`,
+streamed, never holding the file) and a decoder of them
+(`decoder()`), so that demuxing and decoding can be timed apart;
+`read_video(path)` gives the BGR frames.  `avi_info(path)` reads a
+RIFF/AVI file's headers and refuses, naming the file and the fourcc, a
+first video stream that is neither Motion-JPEG nor MPEG-4 Part 2
+(`FMP4`, `XVID`, `DIVX`, `DX50`, `MP4V`, in any case; H.264, ...);
+`avi_frames(path)` streams the `##dc`/`##db` chunks of that stream in
+the order of the `movi` lists (inside `rec ` lists too), then those of
+the OpenDML `AVIX` continuation RIFFs; other streams' chunks, `JUNK` and
+index chunks are skipped.  In an MPEG-4 AVI the VOL headers come in the
+first chunk, and a chunk that packs several VOPs (DivX's packed
+bitstream) is refused.
+
+Motion-JPEG frames decode with `images.decode_jpeg`, which takes frames
+without a DHT segment (the standard tables); its yardstick is OpenCV's
+own Motion-JPEG reader (`cv2.CAP_OPENCV_MJPEG`), which returns
+`cv2.imdecode` of each chunk (`cv2.VideoCapture(path)` with OpenCV's
+default backend decodes through FFmpeg, whose JPEG decoder rounds
+otherwise, by up to ~20 levels).  MPEG-4 decodes with `data/mpeg4.py`,
+whose yardstick is `cv2.VideoCapture(path)` itself (FFmpeg's decoder and
+its swscale conversion to BGR).
 """
 
 from __future__ import annotations
@@ -20,7 +33,7 @@ from __future__ import annotations
 import os
 import struct
 from dataclasses import dataclass
-from typing import BinaryIO, Iterator, Tuple
+from typing import BinaryIO, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -30,6 +43,9 @@ from .images import decode_jpeg
 # header's compression, in any case), as OpenCV's own MJPEG reader
 # takes it.
 MJPEG_FOURCCS = (b"MJPG",)
+# MPEG-4 Part 2 fourccs (compared upper-cased): FFmpeg's mpeg4 encoder
+# (`FMP4`), Xvid, DivX 4/5, and `mp4v`/`MP4V`.
+MPEG4_FOURCCS = (b"FMP4", b"XVID", b"DIVX", b"DX50", b"MP4V")
 
 
 class VideoError(ValueError):
@@ -45,6 +61,7 @@ class AviInfo:
     frames: int          # the header's count (of the first RIFF)
     stream: int          # index of the video stream
     fourcc: str
+    codec: str = "mjpeg"  # or "mpeg4"
 
 
 def _read_chunk_header(f: BinaryIO) -> Tuple[bytes, int]:
@@ -86,33 +103,37 @@ def _parse_hdrl(f: BinaryIO, end: int, path: str) -> AviInfo:
     handler = strh[4:8]
     compression = strf[16:20] if strf is not None and len(strf) >= 20 \
         else b"\0\0\0\0"
-    if handler.upper() not in MJPEG_FOURCCS and \
-            compression.upper() not in MJPEG_FOURCCS:
+    codec = fourcc = None
+    for cc in (compression, handler):
+        if cc.upper() in MJPEG_FOURCCS:
+            codec, fourcc = "mjpeg", cc
+            break
+        if cc.upper() in MPEG4_FOURCCS:
+            codec, fourcc = "mpeg4", cc
+            break
+    if codec is None:
         raise VideoError(
             f"{path}: video codec {_fourcc(handler)!r} (compression "
             f"{_fourcc(compression)!r}) is not supported; only Motion-JPEG "
-            "AVI is read")
+            "and MPEG-4 Part 2 AVI are read")
     scale, rate, _, length = struct.unpack("<IIII", strh[20:36])
     width, height = struct.unpack("<ii", strf[4:12])
     return AviInfo(path, width, abs(height), rate / scale if scale else 0.0,
-                   length, stream,
-                   _fourcc(compression if compression.upper()
-                           in MJPEG_FOURCCS else handler))
+                   length, stream, _fourcc(fourcc), codec)
 
 
 def avi_info(path: str) -> AviInfo:
-    """The headers of the Motion-JPEG AVI at `path`; raises `VideoError`
-    naming the file for anything else."""
+    """The headers of the Motion-JPEG or MPEG-4 AVI at `path`; raises
+    `VideoError` naming the file for anything else."""
     path = os.fspath(path)
     with open(path, "rb") as f:
         head = f.read(12)
         if head[4:8] == b"ftyp":
             raise VideoError(
                 f"{path}: an MP4/QuickTime file (brand "
-                f"{_fourcc(head[8:12])!r}); only Motion-JPEG AVI is read")
+                f"{_fourcc(head[8:12])!r}), not an AVI")
         if head[:4] != b"RIFF" or head[8:12] != b"AVI ":
-            raise VideoError(f"{path}: not an AVI (RIFF 'AVI ') file; only "
-                             "Motion-JPEG AVI is read")
+            raise VideoError(f"{path}: not an AVI (RIFF 'AVI ') file")
         while True:
             fourcc, size = _read_chunk_header(f)
             if size < 0:
@@ -167,14 +188,114 @@ def avi_frames(path: str, info: AviInfo = None) -> Iterator[bytes]:
             pos = pos + 8 + size + (size & 1)
 
 
+class _JpegFrames:
+    """Motion-JPEG chunks -> BGR frames."""
+
+    def __init__(self, path: str):
+        self.path, self.n = path, 0
+
+    def decode(self, data: bytes) -> List[np.ndarray]:
+        img = decode_jpeg(data, f"{self.path} frame {self.n}")
+        self.n += 1
+        return [img]
+
+    def flush(self) -> List[np.ndarray]:
+        return []
+
+
+class _Mpeg4Frames:
+    """MPEG-4 chunks/samples -> BGR frames; the pictures of the first
+    `skip` samples (before an MP4 edit list's start) are decoded but not
+    shown, as FFmpeg's demuxer discards them."""
+
+    def __init__(self, path: str, config: bytes, fourcc: str, skip: int):
+        from .mpeg4 import Mpeg4Decoder
+        self.dec = Mpeg4Decoder(path, config, fourcc)
+        self.skip = skip
+
+    def _show(self, planes) -> List[np.ndarray]:
+        from .mpeg4 import yuv420_to_bgr
+        return [] if planes is None else [yuv420_to_bgr(*planes)]
+
+    def decode(self, data: bytes) -> List[np.ndarray]:
+        planes = self.dec.decode(data)
+        if self.skip:
+            self.skip -= 1
+            return []
+        return self._show(planes)
+
+    def flush(self) -> List[np.ndarray]:
+        return self._show(self.dec.flush())
+
+
+@dataclass
+class VideoStream:
+    """A video file's first video stream: `container` "avi" or "mp4",
+    `codec` "mjpeg" or "mpeg4", its size and frame rate."""
+    path: str
+    container: str
+    codec: str
+    width: int
+    height: int
+    fps: float
+    avi: Optional[AviInfo] = None
+    mp4: Optional[object] = None   # data.mp4.Mp4Info
+
+    def packets(self) -> Iterator[bytes]:
+        """The stream's chunks (AVI) or samples (MP4), in order."""
+        if self.container == "avi":
+            return avi_frames(self.path, self.avi)
+        from .mp4 import mp4_samples
+        return mp4_samples(self.path, self.mp4)
+
+    def decoder(self):
+        """A decoder of `packets()`: `.decode(packet)` and, at the end,
+        `.flush()` give lists of (H, W, 3) uint8 BGR frames."""
+        if self.codec == "mjpeg":
+            return _JpegFrames(self.path)
+        if self.container == "avi":
+            return _Mpeg4Frames(self.path, b"", self.avi.fourcc, 0)
+        return _Mpeg4Frames(self.path, self.mp4.config, "", self.mp4.skip)
+
+
+def open_video(path: str) -> VideoStream:
+    """The video stream of the AVI or MP4/M4V/MOV file at `path` (told
+    apart by the file's bytes); raises `VideoError` naming the file for
+    any other file, container or codec."""
+    path = os.fspath(path)
+    with open(path, "rb") as f:
+        head = f.read(12)
+    if head[4:8] == b"ftyp":
+        from .mp4 import mp4_info
+        info = mp4_info(path)
+        return VideoStream(path, "mp4", "mpeg4", info.width, info.height,
+                           info.fps, mp4=info)
+    if head[:4] == b"RIFF" and head[8:12] == b"AVI ":
+        info = avi_info(path)
+        return VideoStream(path, "avi", info.codec, info.width, info.height,
+                           info.fps, avi=info)
+    raise VideoError(f"{path}: neither an AVI nor an MP4/QuickTime file; "
+                     "only Motion-JPEG AVI and MPEG-4 Part 2 in AVI or MP4 "
+                     "are read")
+
+
 def read_video(path: str, max_frames: int = 0
                ) -> Iterator[Tuple[int, np.ndarray]]:
-    """(frame index, (H, W, 3) uint8 BGR) for each frame of the
-    Motion-JPEG AVI at `path` (at most `max_frames` when > 0); a frame
-    the decoder refuses raises `images.ImageError` naming the file and
-    the frame."""
-    info = avi_info(path)
-    for i, data in enumerate(avi_frames(path, info)):
+    """(frame index, (H, W, 3) uint8 BGR) for each frame of the video at
+    `path` (at most `max_frames` when > 0); a frame the decoder refuses
+    raises (`images.ImageError` or `VideoError`) naming the file and the
+    frame."""
+    stream = open_video(path)
+    dec = stream.decoder()
+    i = 0
+    for data in stream.packets():
+        for img in dec.decode(data):
+            if max_frames and i >= max_frames:
+                return
+            yield i, img
+            i += 1
+    for img in dec.flush():
         if max_frames and i >= max_frames:
             return
-        yield i, decode_jpeg(data, f"{path} frame {i}")
+        yield i, img
+        i += 1

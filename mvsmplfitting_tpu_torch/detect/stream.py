@@ -2,15 +2,18 @@
 (port of `detect/stream.py`; the reference's `DetectionLoader` and
 `DataWriter` / `DataWriterSMPL`, `alphapose/utils/writer*.py`).
 
-Frames are read on the host (`data/video.py`: Motion-JPEG AVI without
-OpenCV; `data/images.py` for a folder), gathered into chunks of 4, run
-through the detector as one batch on the device and through the pose
-net (or HybrIK) per frame, then written: one OpenPose JSON per frame
-(`<out>/<serial>/%06d_keypoints.json`), the reference's aggregated
-results file (`pose_nms.write_results_json`) and a drawn Motion-JPEG AVI
-at 30 fps (`viz/video.py:VideoWriter`).  A webcam index (V4L2) is
-refused, and so is a video other than Motion-JPEG AVI, naming the file
-and the fourcc.  A folder's `.jpg`, `.jpeg`, `.png` and `.bmp` frames
+Frames are read on the host (`data/video.py` without OpenCV:
+Motion-JPEG AVI, and MPEG-4 Part 2 in AVI or MP4/M4V/MOV through
+`data/mp4.py` and `data/mpeg4.py`; `data/images.py` for a folder),
+gathered into chunks of 4, run through the detector as one batch on the
+device and through the pose net (or HybrIK) per frame, then written: one
+OpenPose JSON per frame (`<out>/<serial>/%06d_keypoints.json`), the
+reference's aggregated results file (`pose_nms.write_results_json`) and
+a drawn video at 30 fps (`viz/video.py:VideoWriter`: MPEG-4 at a `.mp4`,
+`.m4v`, `.mov` or `.avi` name, as cv2's `mp4v` writer writes it, else
+JAX's Motion-JPEG fallback at the `.avi` name).  A webcam index (V4L2)
+is refused, and so is any other video (H.264, Matroska, ...), naming
+the file and the codec or container.  A folder's `.jpg`, `.jpeg`, `.png` and `.bmp` frames
 are read as `cv2.imread` reads them (`data/images.py`); a file the
 image reader refuses raises naming it (JAX's `cv2.imread` reads it or
 skips it).
@@ -29,8 +32,8 @@ from typing import Iterator, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..data.images import decode_jpeg, read_image
-from ..data.video import VideoError, avi_frames, avi_info
+from ..data.images import read_image
+from ..data.video import VideoError, open_video
 from ..utils.profiling import StageTimer
 
 IMAGE_SUFFIXES = (".jpg", ".jpeg", ".png", ".bmp")
@@ -44,23 +47,25 @@ def parse_source(src: str) -> Union[int, str]:
 
 def check_source(src) -> None:
     """Refuses a source the port cannot read before any net is built:
-    a webcam index, a missing path, a video other than Motion-JPEG AVI."""
+    a webcam index, a missing path, a video other than Motion-JPEG AVI or
+    MPEG-4 Part 2 in AVI or MP4."""
     if isinstance(src, int):
         raise VideoError(f"webcam {src}: live capture (V4L2) is not "
-                         "supported; pass a Motion-JPEG AVI or a folder of "
+                         "supported; pass a video file or a folder of "
                          "images")
     if os.path.isdir(src):
         return
     if not os.path.exists(src):
         raise FileNotFoundError(f"{src}: no such video file or folder")
-    avi_info(src)
+    open_video(src)
 
 
 def frame_source(src, max_frames: int = 0,
                  timer: Optional[StageTimer] = None
                  ) -> Iterator[Tuple[int, np.ndarray]]:
     """(frame index, (H, W, 3) uint8 BGR) from a folder of images (sorted
-    names, JAX's `frame_source` semantics) or a Motion-JPEG AVI."""
+    names, JAX's `frame_source` semantics) or a video file; "demux" times
+    the reading of each chunk or sample, "decode" its decoding to BGR."""
     timer = StageTimer() if timer is None else timer
     check_source(src)
     if os.path.isdir(src):
@@ -73,22 +78,27 @@ def frame_source(src, max_frames: int = 0,
                 img = read_image(os.path.join(src, n))
             yield i, img
         return
-    frames = avi_frames(src)
+    stream = open_video(src)
+    packets, dec = stream.packets(), stream.decoder()
     i = 0
     while not (max_frames and i >= max_frames):
         with timer.time("demux"):
-            data = next(frames, None)
+            data = next(packets, None)
+        with timer.time("decode"):
+            imgs = dec.decode(data) if data is not None else dec.flush()
+        for img in imgs:
+            if max_frames and i >= max_frames:
+                return
+            yield i, img
+            i += 1
         if data is None:
             return
-        with timer.time("decode"):
-            img = decode_jpeg(data, f"{src} frame {i}")
-        yield i, img
-        i += 1
 
 
 def open_video_writer(path: str, fps: float, size_wh):
-    """The streaming writer (JAX's `open_video_writer`): a Motion-JPEG AVI
-    at `path` with its extension replaced by `.avi`."""
+    """The streaming writer (JAX's `open_video_writer`): MPEG-4 at `path`,
+    or JAX's Motion-JPEG fallback at the `.avi` name
+    (`viz/video.py:writer_target`)."""
     from ..viz.video import VideoWriter
     return VideoWriter(path, fps, size_wh)
 

@@ -113,6 +113,58 @@ def matrix_to_axis_angle(R: torch.Tensor) -> torch.Tensor:
     return quaternion_to_axis_angle(matrix_to_quaternion(R))
 
 
+def quaternion_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternions (..., 4), w first -> rotation matrices (..., 3, 3)."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    m = torch.stack([
+        1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w),
+        2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w),
+        2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y),
+    ], dim=-1)
+    return m.reshape(q.shape[:-1] + (3, 3))
+
+
+def axis_angle_to_quaternion(aa: torch.Tensor) -> torch.Tensor:
+    """Axis-angle (..., 3) -> unit quaternions (..., 4), w first (the
+    angle of `aa + 1e-8`, as `rodrigues` takes it)."""
+    angle = torch.linalg.vector_norm(aa + _EPS, dim=-1, keepdim=True)
+    half = 0.5 * angle
+    return torch.cat([torch.cos(half), aa * (torch.sin(half) / angle)],
+                     dim=-1)
+
+
+def matrix_to_sixd(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices (..., 3, 3) -> the 6D representation (..., 6):
+    the first two columns as (..., 3, 2) flattened, `sixd_to_matrix`'s
+    layout."""
+    return R[..., :, :2].reshape(R.shape[:-2] + (6,))
+
+
+def euler_angles_to_matrix(euler: torch.Tensor,
+                           convention: str = "XYZ") -> torch.Tensor:
+    """Euler angles (..., 3) -> rotation matrices R = R_c0(a0) @ R_c1(a1)
+    @ R_c2(a2) for the axes of `convention` (three of "X", "Y", "Z", as
+    PyTorch3D's convention strings, which the reference bundles)."""
+    def axis_rot(axis: str, a: torch.Tensor) -> torch.Tensor:
+        c, s = torch.cos(a), torch.sin(a)
+        one, zero = torch.ones_like(a), torch.zeros_like(a)
+        if axis == "X":
+            rows = [one, zero, zero, zero, c, -s, zero, s, c]
+        elif axis == "Y":
+            rows = [c, zero, s, zero, one, zero, -s, zero, c]
+        elif axis == "Z":
+            rows = [c, -s, zero, s, c, zero, zero, zero, one]
+        else:
+            raise ValueError(f"euler convention {convention!r}: axis "
+                             f"{axis!r} is not X, Y or Z")
+        return torch.stack(rows, -1).reshape(a.shape + (3, 3))
+
+    if len(convention) != 3:
+        raise ValueError(f"euler convention {convention!r}: three axes")
+    mats = [axis_rot(ax, euler[..., i]) for i, ax in enumerate(convention)]
+    return mats[0] @ mats[1] @ mats[2]
+
+
 def sixd_to_matrix(sixd: torch.Tensor) -> torch.Tensor:
     """Continuous 6D representation (..., 6) -> rotation matrices.
 

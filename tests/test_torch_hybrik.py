@@ -189,7 +189,8 @@ def test_run_stream_smpl_matches_jax(tmp_path, assets):
                 np.testing.assert_allclose(pg[k], pw[k], atol=ATOL,
                                            rtol=RTOL, err_msg=k)
     assert people >= 2
-    frames = [f for _, f in read_video(str(tmp_path / "p" / "v.avi"))]
+    # MPEG-4 at the name given, as JAX's cv2 `mp4v` writer writes it
+    frames = [f for _, f in read_video(str(tmp_path / "p" / "v.mp4"))]
     assert len(frames) == 2 and frames[0].shape == (48, 64, 3)
     # The meshes: camera-frame vertices within 1e-3 m of JAX's.
     img = cv2.imread(str(src / "0.png"))

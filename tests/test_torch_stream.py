@@ -139,8 +139,11 @@ def test_frames_without_dht_decode_as_opencv(gray, quality):
 
 
 def test_writer_streams_and_reads_back(tmp_path):
+    """Motion-JPEG at the .avi name where cv2's mp4v writer does not open
+    (JAX's fallback), bitwise as OpenCV's MJPEG reader; MPEG-4 at a .mp4
+    or .avi name, read back by cv2 (FFmpeg) and the port alike."""
     frames = smooth_frames(4, seed=3)
-    w = TV.VideoWriter(str(tmp_path / "out.mp4"), 30.0, HW[::-1])
+    w = TV.VideoWriter(str(tmp_path / "out.webm"), 30.0, HW[::-1])
     for f in frames:
         w.write(f)
     w.release()
@@ -163,6 +166,26 @@ def test_writer_streams_and_reads_back(tmp_path):
             w2.write(frames[0])
         finally:
             w2.release()
+    for name, head in (("m.mp4", b"ftypisom"), ("m.avi", b"RIFF")):
+        w = TV.VideoWriter(str(tmp_path / name), 30.0, HW[::-1])
+        for f in frames:
+            w.write(f)
+        w.release()
+        assert w.path == str(tmp_path / name) and w.codec == "mpeg4"
+        with open(w.path, "rb") as f:
+            assert head in f.read(12)
+        cap = cv2.VideoCapture(w.path)
+        assert cap.get(cv2.CAP_PROP_FPS) == 30.0
+        want = []
+        while True:
+            ok, f = cap.read()
+            if not ok:
+                break
+            want.append(f)
+        got = [f for _, f in V.read_video(w.path)]
+        assert len(got) == len(want) == 4
+        for g, o in zip(got, want):
+            np.testing.assert_array_equal(g, o)
 
 
 def _chunk(fourcc, data):
@@ -172,7 +195,7 @@ def _chunk(fourcc, data):
 
 def avi_bytes(jpegs, fps):
     buf = io.BytesIO()
-    w = TV.MjpegAviWriter(buf, HW[1], HW[0], fps)
+    w = TV.AviWriter(buf, HW[1], HW[0], fps)
     for j in jpegs:
         w.write(j)
     w.close()
@@ -201,7 +224,7 @@ def test_opendml_continuation_rec_lists_and_other_streams(tmp_path):
 
 def test_other_codecs_and_webcams_refused(tmp_path, small_cli, monkeypatch):
     frames = smooth_frames(2)
-    for name, cc in (("x.avi", "XVID"), ("m.mp4", "mp4v")):
+    for name, cc in (("x.avi", "DIV3"), ("m.mp4", "MJPG")):
         path = str(tmp_path / name)
         w = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*cc), 10.0,
                             HW[::-1])
@@ -212,7 +235,7 @@ def test_other_codecs_and_webcams_refused(tmp_path, small_cli, monkeypatch):
         with pytest.raises(V.VideoError) as e:
             list(V.read_video(path))
         assert path in str(e.value)
-        assert ("'XVID'" if cc == "XVID" else "MP4") in str(e.value)
+        assert ("'DIV3'" if cc == "DIV3" else "JPEG") in str(e.value)
 
     def boom(*a, **k):
         raise AssertionError("built a net before refusing")
@@ -331,6 +354,57 @@ def test_run_stream_matches_jax(tmp_path, weights):
                                [r["box"] for r in jres], atol=1e-3)
 
 
+def test_run_stream_writes_video_as_jax(tmp_path, weights):
+    """`out_video` at a .mp4, .avi and .webm name: JAX's `run_stream`
+    (cv2.VideoWriter, mp4v, then MJPG at the .avi name) and the port's
+    write the same file name and container, with the same frame count,
+    size and frame rate as cv2 reads them."""
+    from mvsmplfitting_tpu.detect import convert as JC
+    from mvsmplfitting_tpu.detect import predictor as JPr
+    from mvsmplfitting_tpu.detect import stream as JS
+    from mvsmplfitting_tpu.detect.fastpose import FastPose as JFastPose
+    det_sd, pose_sd = weights
+    src = frame_folder(str(tmp_path / "frames"), smooth_frames(3, seed=9))
+    jdet = JPr.PersonDetector(JC.convert_yolox_sd(det_sd, 0.33),
+                              input_hw=DET_HW, depth_mul=0.33,
+                              width_mul=0.25)
+    jpose = JPr.PoseEstimator(JC.convert_fastpose_sd(pose_sd), num_joints=J,
+                              input_hw=POSE_HW, model=JFastPose(J))
+    det, pose = port_nets(weights)
+
+    def probe(path):
+        with open(path, "rb") as f:
+            head = f.read(12)
+        cap = cv2.VideoCapture(path)
+        n = 0
+        shape = None
+        while True:
+            ok, f = cap.read()
+            if not ok:
+                break
+            n, shape = n + 1, f.shape
+        fps = cap.get(cv2.CAP_PROP_FPS)
+        cap.release()
+        kind = head[4:12] if head[4:8] == b"ftyp" else head[8:12]
+        return kind, n, shape, fps
+
+    for name, made in (("out.mp4", "out.mp4"), ("out.avi", "out.avi"),
+                       ("out.webm", "out.avi")):
+        JS.run_stream(src, jdet, jpose, out_json_dir=str(tmp_path / "jj"),
+                      out_video=str(tmp_path / "j" / name), chunk=3)
+        TS.run_stream(src, det, pose, out_json_dir=str(tmp_path / "pj"),
+                      out_video=str(tmp_path / "p" / name), chunk=3)
+        assert sorted(os.listdir(tmp_path / "j")) == \
+            sorted(os.listdir(tmp_path / "p"))
+        want = probe(str(tmp_path / "j" / made))
+        assert probe(str(tmp_path / "p" / made)) == want
+        assert want[1:] == (3, HW + (3,), 30.0), want
+        if made.endswith(".avi"):
+            j = V.avi_info(str(tmp_path / "j" / made))
+            p = V.avi_info(str(tmp_path / "p" / made))
+            assert (p.fourcc.upper(), p.codec) == (j.fourcc.upper(), j.codec)
+
+
 def test_cli_video_mode(tmp_path, weights, small_cli, clip):
     """`--video <avi> --out_video --results_dir --max_frames 4`: the
     frames as OpenCV's MJPEG reader gives them, through the same nets as
@@ -355,8 +429,18 @@ def test_cli_video_mode(tmp_path, weights, small_cli, clip):
     want = read_tree(tmp_path / "direct" / "stream")
     for name in want:
         np.testing.assert_array_equal(got[name], want[name])
-    drawn = opencv_mjpeg(str(tmp_path / "drawn.avi"))
+    # MPEG-4 at the name given, as cv2's mp4v writer writes it
+    cap = cv2.VideoCapture(str(tmp_path / "drawn.mp4"))
+    drawn = []
+    while True:
+        ok, f = cap.read()
+        if not ok:
+            break
+        drawn.append(f)
     assert len(drawn) == 4 and drawn[0].shape == HW + (3,)
-    assert len(list(V.read_video(str(tmp_path / "drawn.avi")))) == 4
+    got = [f for _, f in V.read_video(str(tmp_path / "drawn.mp4"))]
+    assert len(got) == 4
+    for g, d in zip(got, drawn):
+        np.testing.assert_array_equal(g, d)
     with open(tmp_path / "res" / "alphapose-results.json") as f:
         assert len(json.load(f)) == 4

@@ -30,6 +30,7 @@ cv2 = pytest.importorskip("cv2")
 from mvsmplfitting_tpu.viz import overlay as JO  # noqa: E402
 from mvsmplfitting_tpu.viz import skeletons as JS  # noqa: E402
 from mvsmplfitting_tpu_torch.data import images as I  # noqa: E402
+from mvsmplfitting_tpu_torch.data import video as V  # noqa: E402
 from mvsmplfitting_tpu_torch.detect.preprocess import (  # noqa: E402
     resize_area_half_u8, resize_linear_u8_by)
 from mvsmplfitting_tpu_torch.viz import draw as D  # noqa: E402
@@ -479,7 +480,27 @@ def test_export_video_reads_back(tmp_path):
     small = str(tmp_path / "small.jpg")
     cv2.imwrite(small, cv2.resize(cv2.imread(paths[0]), (333, 211)))
     paths.append(small)
+    # MPEG-4 at the .mp4 name, as JAX's cv2 writer writes it: cv2 and
+    # the port read it alike, close to the resized sources
     out = TV.export_video(paths, str(tmp_path / "v" / "clip.mp4"), fps=25)
+    assert out == str(tmp_path / "v" / "clip.mp4")
+    cap = cv2.VideoCapture(out)
+    assert cap.get(cv2.CAP_PROP_FPS) == 25
+    mine = [f for _, f in V.read_video(out)]
+    assert len(mine) == 4
+    for p, got in zip(paths, mine):
+        ok, frame = cap.read()
+        assert ok
+        np.testing.assert_array_equal(got, frame)
+        src = cv2.imread(p)
+        if src.shape != (1080, 1920, 3):
+            src = cv2.resize(src, (1920, 1080))
+        mse = np.mean((frame.astype(float) - src) ** 2)
+        assert 10 * np.log10(255 ** 2 / mse) > 30, p
+    assert not cap.read()[0]
+    cap.release()
+    # Motion-JPEG at the .avi name where cv2's mp4v writer cannot open
+    out = TV.export_video(paths, str(tmp_path / "v" / "clip.webm"), fps=25)
     assert out == str(tmp_path / "v" / "clip.avi")
     cap = cv2.VideoCapture(out, cv2.CAP_OPENCV_MJPEG)
     assert cap.isOpened()
@@ -518,6 +539,9 @@ def test_export_video_skips_missing_frame(tmp_path):
         paths.append(p)
     os.remove(paths[1])
     out = TV.export_video(paths, str(tmp_path / "clip.avi"))
+    assert len(list(V.read_video(out))) == 2       # MPEG-4 AVI
+    out = TV.export_video(paths, str(tmp_path / "clip.webm"))
+    assert out == str(tmp_path / "clip.avi")      # JAX's MJPG fallback
     cap = cv2.VideoCapture(out, cv2.CAP_OPENCV_MJPEG)
     assert cap.get(cv2.CAP_PROP_FRAME_COUNT) == 2
     for p in (paths[0], paths[2]):
