@@ -219,7 +219,7 @@ Phases (each prints one line; any failure exits non-zero):
      `keypoint_weights`' YOLOX-X and FastPose checkpoints: (a) the six
      fixture JPEGs muxed into a Motion-JPEG AVI as written and with
      their DHT segments stripped, every frame read back equal (sha256)
-     to `read_image` of its JPEG, demux and decode ms a frame, an H264
+     to `read_image` of its JPEG, demux and decode ms a frame, an HEVC
      fourcc refused naming the file; (b) `--video` on a 12-frame clip of
      those views with `--out_video` and `--results_dir`: frames/s, the
      per-stage seconds a frame (demux, decode, the nets' stages, json,
@@ -235,7 +235,13 @@ Phases (each prints one line; any failure exits non-zero):
      of its frames through the encoder (ms a frame, bytes); `--video
      clip.mp4 --out_video drawn.mp4` on it: frames/s, per-stage seconds,
      12 JSONs, the drawn MP4 re-read by the port (12 frames); no B1-B4
-     launch; (c) `--pose_cfg` with three configs in
+     launch; (g) H.264: every committed clip of `tests/fixtures/video`
+     (`decoded_h264.json`: Annex B, MP4 `avc1`/`avc3`, MOV, AVI; CAVLC
+     and CABAC; 175x99 through the MP4's size) decoded to cv2's recorded
+     sha256; the 1920x1080 MP4's (coded 1088) demux, decode and BGR ms a
+     frame; `--video clip.mp4 --out_video drawn.mp4` on it: frames/s over
+     the loop and the wall, per-stage seconds, 12 JSONs, the drawn MP4
+     re-read (12 frames); no B1-B4 launch; (c) `--pose_cfg` with three configs in
      the reference's layout, all 256x192: FastPose-DCN (halpe26,
      CONV_DIM 256, STAGE_WITH_DCN [F, T, T, T], offset convs at 3x gain:
      their |offset| mean and max and the share of taps outside the
@@ -2136,6 +2142,7 @@ IMAGE_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "images")
 VIDEO_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "video")
 ST_MPEG4_CLIP = "mp4v_1920x1080.mp4"   # [stream] (f): 12 frames
 ST_ENCODE_FRAMES = 6   # [stream] (f): 1080p frames timed through the encoder
+ST_H264_CLIP = "h264_1920x1080.mp4"    # [stream] (g): 12 frames, coded 1088
 
 
 def _obj_bias_shift(decoded: torch.Tensor, thresh: float, target: int
@@ -3098,22 +3105,22 @@ def stream_phase(dev, launches: dict, weights) -> None:
                 decode.append(time.perf_counter() - t0)
             assert got == want, f"{tag}: frames differ from read_image"
             times[tag] = (float(np.median(demux)), float(np.median(decode)))
-        bad = os.path.join(tmp, "h264.avi")
+        bad = os.path.join(tmp, "hevc.avi")
         with open(os.path.join(tmp, "as_written.avi"), "rb") as f:
             body = f.read()
         with open(bad, "wb") as f:
-            f.write(body.replace(b"MJPG", b"H264"))
+            f.write(body.replace(b"MJPG", b"HEVC"))
         try:
             V.avi_info(bad)
-            raise AssertionError("an H264 fourcc was not refused")
+            raise AssertionError("an HEVC fourcc was not refused")
         except V.VideoError as e:
-            assert bad in str(e) and "'H264'" in str(e), str(e)
+            assert bad in str(e) and "'HEVC'" in str(e), str(e)
         log("stream", part="reader", frames=6, size=f"{w}x{h}",
             equal="read_image sha256, as written and DHT-stripped",
             demux_ms=f"{1e3 * times['as_written'][0]:.3f}",
             decode_ms=f"{1e3 * times['as_written'][1]:.2f}",
             decode_ms_dht_stripped=f"{1e3 * times['dht_stripped'][1]:.2f}",
-            refused="H264", card=card)
+            refused="HEVC", card=card)
 
         # ---- weights and checkpoints ----------------------------------------
         dev_imgs = [torch.from_numpy(i).to(dev) for i in imgs]
@@ -3264,6 +3271,72 @@ def stream_phase(dev, launches: dict, weights) -> None:
             video_fps=f"{n_mp4 / wall:.3f}", wall_s=f"{wall:.3f}",
             loop_fps=f"{n_mp4 / sum(sum(v) for v in timer.timings.values()):.3f}",
             per_frame_s=per_frame(timer, n_mp4, (
+                "demux", "decode", "letterbox", "detector", "nms", "crop",
+                "pose", "heatmap", "json", "draw", "encode", "results")),
+            drawn_frames=len(drawn), launches_b1_b4=0, card=card)
+
+        # ---- (g) H.264: the committed clips, then --video clip.mp4 -----------
+        with open(os.path.join(VIDEO_FIXTURES, "decoded_h264.json")) as f:
+            record = json.load(f)
+        reset_launches(JK, VK, SK)
+        t_clips = time.perf_counter()
+        for name, rec in sorted(record.items()):
+            got = [sha(f) for _, f in V.read_video(
+                os.path.join(VIDEO_FIXTURES, name))]
+            assert got == rec["bgr_sha256"], f"[stream] (g) {name} differs"
+        t_clips = time.perf_counter() - t_clips
+        big = os.path.join(VIDEO_FIXTURES, ST_H264_CLIP)
+        stream = V.open_video(big)
+        dec = stream.decoder()
+        codec_s = []
+        codec = dec.dec.decode
+
+        def timed_h264(data):
+            t0 = time.perf_counter()
+            pictures = codec(data)
+            codec_s.append(time.perf_counter() - t0)
+            return pictures
+
+        dec.dec.decode = timed_h264
+        demux, whole, frames = [], [], []
+        packets = stream.packets()
+        while True:
+            t0 = time.perf_counter()
+            data = next(packets, None)
+            if data is None:
+                break
+            demux.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            frames += dec.decode(data)
+            whole.append(time.perf_counter() - t0)
+        frames += dec.flush()
+        decode, convert = codec_s, [a - b for a, b in zip(whole, codec_s)]
+        assert [sha(f) for f in frames] == record[ST_H264_CLIP]["bgr_sha256"]
+        got = read_launches(JK, VK, SK)
+        launches["stream_h264_codec"] = got
+        assert not any(got.values()), f"[stream] (g) codec launched {got}"
+        h264_ws = os.path.join(tmp, "h264_ws")
+        drawn_h264 = os.path.join(tmp, "drawn_h264.mp4")
+        timer, wall = run_cli([
+            "--video", big, "--out_video", drawn_h264, "--data_folder",
+            h264_ws, "--yolox_ckpt", yolox_ckpt, "--pose_ckpt", pose_ckpt,
+            "--device", dev.type], "h264")
+        n_h264 = len(record[ST_H264_CLIP]["bgr_sha256"])
+        jsons = sorted(os.listdir(os.path.join(h264_ws, "keypoints",
+                                               "stream")))
+        assert jsons == [f"{i:06d}_keypoints.json" for i in range(n_h264)]
+        drawn = list(V.read_video(drawn_h264))
+        assert len(drawn) == n_h264 and drawn[0][1].shape == (
+            stream.height, stream.width, 3), (len(drawn), drawn[0][1].shape)
+        loop = sum(sum(v) for v in timer.timings.values())
+        log("stream", part="h264", clips=len(record),
+            equal="cv2 sha256 of every clip", clips_s=f"{t_clips:.3f}",
+            size=f"{stream.width}x{stream.height}", frames=n_h264,
+            demux_ms=med(demux), decode_ms=med(decode), bgr_ms=med(convert),
+            host_ms=f"{1e3 * (sum(demux) + sum(whole)) / len(frames):.3f}",
+            video_fps=f"{n_h264 / wall:.3f}", wall_s=f"{wall:.3f}",
+            loop_fps=f"{n_h264 / loop:.3f}",
+            per_frame_s=per_frame(timer, n_h264, (
                 "demux", "decode", "letterbox", "detector", "nms", "crop",
                 "pose", "heatmap", "json", "draw", "encode", "results")),
             drawn_frames=len(drawn), launches_b1_b4=0, card=card)
@@ -3432,9 +3505,11 @@ def stream_phase(dev, launches: dict, weights) -> None:
 
 
 TR_PER_VIEW = 32       # [train] (a): persons a fixture view (192: 6 batches of 32)
-TR_DET_IMAGES = 32     # [train] (b): image entries over the six views (4 batches of 8)
 TR_POSE_STEPS = 6      # [train] (a)
-TR_YOLOX_STEPS = 4     # [train] (b), mosaic and mixup; then one no-aug L1 step
+TR_YOLOX_STEPS = 2     # [train] (b), mosaic and mixup; then one no-aug L1 step
+# [train] (b): image entries over the six views, one epoch of mosaic steps
+# at batch 8 (the second, `--no_aug_epochs 1`, gives the L1 step)
+TR_DET_IMAGES = 8 * TR_YOLOX_STEPS
 TR_HYBRIK_STEPS = 3    # [train] (c)
 TR_HYBRIK_BATCH = 16   # [train] (c): crops a step
 TR_RTOL, TR_ATOL = 1e-4, 1e-6    # [train] (d): card vs CPU, float64;

@@ -11,7 +11,7 @@ the OpenPose format that `mvsmplfitting_tpu_torch.cli.main` reads:
 
 The other modes, as JAX's flow (`cli/keypoints.py:83-174`):
 
-* ``--video <clip.mp4 | clip.avi | folder> [--out_video v.mp4]
+* ``--video <clip.mp4 | clip.avi | clip.h264 | folder> [--out_video v.mp4]
   [--results_dir d
   --results_form cmu|open --for_eval] [--max_frames N]``: the streaming
   mode (`detect/stream.py:run_stream`), one JSON per frame under
@@ -28,9 +28,11 @@ The nets run on `--device` (CUDA unless ``--device cpu``; no fall back
 to the CPU).  Without checkpoints they run on weights made from seed 0
 (pipeline smoke tests only: the detections mean nothing).  Checkpoints
 load in the reference's names.  A webcam index, a video other than
-Motion-JPEG AVI or MPEG-4 Part 2 in AVI or MP4/M4V/MOV, `--smpl` without
-`--video` and a config the zoo cannot build are refused before any net
-is built.
+Motion-JPEG AVI, MPEG-4 Part 2 in AVI or MP4/M4V/MOV, or H.264 (I and P
+slices) in AVI, MP4/M4V/MOV or Annex B, `--smpl` without `--video` and a
+config the zoo cannot build are refused before any net is built (an
+H.264 tool outside the port's, such as B slices, when its picture is
+reached).
 """
 
 from __future__ import annotations
@@ -52,8 +54,9 @@ def parse_args(argv=None):
                    help="holds images/<serial>/<cam> (offline mode)")
     p.add_argument("--video", default=None,
                    help="streaming mode: a video (MPEG-4 Part 2 in MP4, "
-                        "M4V, MOV or AVI; Motion-JPEG AVI) or a folder of "
-                        "images (detect/stream.py)")
+                        "M4V, MOV or AVI; H.264 in MP4, M4V, MOV, AVI or "
+                        "Annex B; Motion-JPEG AVI) or a folder of images "
+                        "(detect/stream.py)")
     p.add_argument("--out_video", default=None,
                    help="streaming mode: the drawn video, as cv2's mp4v "
                         "writer writes it: MPEG-4 at a .mp4/.m4v/.mov/.avi "

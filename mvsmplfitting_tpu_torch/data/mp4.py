@@ -39,6 +39,11 @@ OBJECT_TYPES = {0x20: "MPEG-4 Part 2", 0x21: "H.264", 0x23: "H.265",
                 0x62: "MPEG-2 SNR", 0x63: "MPEG-2 Spatial",
                 0x64: "MPEG-2 High", 0x65: "MPEG-2 4:2:2", 0x6A: "MPEG-1",
                 0x6C: "JPEG"}
+# sample entries of other codecs -> a name for the refusal message
+SAMPLE_ENTRIES = {b"hvc1": "H.265", b"hev1": "H.265", b"av01": "AV1",
+                  b"vp09": "VP9", b"vp08": "VP8", b"mjpa": "Motion-JPEG",
+                  b"jpeg": "JPEG", b"apch": "ProRes", b"apcn": "ProRes",
+                  b"s263": "H.263", b"mp2v": "MPEG-2"}
 # the brand libavformat gives a file by its name's extension
 BRANDS = {".mp4": b"isom", ".m4v": b"M4V ", ".m4a": b"M4V ",
           ".mov": b"qt  "}
@@ -53,6 +58,8 @@ class Mp4Info:
     config: bytes                   # the esds DecoderSpecificInfo
     samples: List[Tuple[int, int]]  # (file offset, size) in decode order
     skip: int = 0                   # samples hidden by the edit list
+    codec: str = "mpeg4"            # or "h264"
+    nal_length_size: int = 0        # H.264: bytes of each NAL unit's length
 
 
 def _boxes(data: bytes, start: int = 0, end: Optional[int] = None
@@ -268,21 +275,57 @@ def _mp4_info(path: str) -> Mp4Info:
             raise VideoError(f"{path}: empty stsd")
         codec, es, ee = entries[0]
         name = codec.decode("latin-1")
-        if codec != b"mp4v":
+        if codec not in (b"mp4v", b"avc1", b"avc3"):
+            what = SAMPLE_ENTRIES.get(codec)
             raise VideoError(
-                f"{path}: video codec {name!r} is not supported; only "
-                "MPEG-4 Part 2 (mp4v) is read from MP4/QuickTime files")
+                f"{path}: video codec {name!r}"
+                + (f" ({what})" if what else "") + " is not supported; only "
+                "MPEG-4 Part 2 (mp4v) and H.264 (avc1, avc3) are read from "
+                "MP4/QuickTime files")
         width, height = struct.unpack(">HH", stbl[es + 24:es + 28])
         config = b""
-        for k, a, b in _boxes(stbl, es + 78, ee):
-            if k == b"esds":
-                config = _esds(stbl, a, b, path)
+        nal_length_size = 0
+        children = {k: (a, b) for k, a, b in _boxes(stbl, es + 78, ee)}
+        if codec == b"mp4v":
+            if b"esds" in children:
+                config = _esds(stbl, *children[b"esds"], path)
+        elif b"avcC" not in children:
+            raise VideoError(f"{path}: video codec {name!r} without an avcC "
+                             "box")
+        else:
+            config, nal_length_size = _avcc(stbl, *children[b"avcC"], path)
         total = sum(c * d for c, d in stts)
         count = sum(c for c, _ in stts)
         fps = count * timescale / total if total else 0.0
         skip = _edit_skip(moov, trak.get(b"edts"), timescale, stts, path)
-        return Mp4Info(path, width, height, fps, config, samples, skip)
+        return Mp4Info(path, width, height, fps, config, samples, skip,
+                       "mpeg4" if codec == b"mp4v" else "h264",
+                       nal_length_size)
     raise VideoError(f"{path}: no video track")
+
+
+def _avcc(data: bytes, s: int, e: int, path: str) -> Tuple[bytes, int]:
+    """The parameter sets of an `avcC` box (each with a length prefix of
+    the stream's NAL length size) and that size."""
+    if e - s < 7 or data[s] != 1:
+        raise VideoError(f"{path}: malformed avcC box")
+    size = (data[s + 4] & 3) + 1
+    out = []
+    at = s + 5
+    for count_mask in (31, 255):
+        n = data[at] & count_mask
+        at += 1
+        for _ in range(n):
+            ln = struct.unpack(">H", data[at:at + 2])[0]
+            unit = data[at + 2:at + 2 + ln]
+            if len(unit) != ln:
+                raise VideoError(f"{path}: avcC parameter set cut short")
+            if ln >= 1 << (8 * size):
+                raise VideoError(f"{path}: avcC parameter set longer than "
+                                 f"its NAL length size {size}")
+            out.append(ln.to_bytes(size, "big") + bytes(unit))
+            at += 2 + ln
+    return b"".join(out), size
 
 
 def _edit_skip(moov: bytes, edts, timescale: int, stts, path: str) -> int:
@@ -398,6 +441,14 @@ class Mp4Writer:
             self.keys.append(len(self.sizes))
         self.out.write(sample)
 
+    def sample_entry(self) -> bytes:
+        """The `mp4v` visual sample entry with its `esds`."""
+        return _box(b"mp4v", bytes(6), struct.pack(">H", 1), bytes(16),
+                    struct.pack(">HHIIIH", self.width, self.height,
+                                0x480000, 0x480000, 0, 1),
+                    bytes(32), struct.pack(">Hh", 0x18, -1),
+                    esds_box(self.config))
+
     def _moov(self) -> bytes:
         n = len(self.sizes)
         media_dur = n * self.inc
@@ -417,12 +468,8 @@ class Mp4Writer:
         vmhd = _fullbox(b"vmhd", 0, 1, bytes(8))
         dinf = _box(b"dinf", _fullbox(b"dref", 0, 0, struct.pack(">I", 1),
                                       _fullbox(b"url ", 0, 1)))
-        entry = _box(b"mp4v", bytes(6), struct.pack(">H", 1), bytes(16),
-                     struct.pack(">HHIIIH", self.width, self.height,
-                                 0x480000, 0x480000, 0, 1),
-                     bytes(32), struct.pack(">Hh", 0x18, -1),
-                     esds_box(self.config))
-        stsd = _fullbox(b"stsd", 0, 0, struct.pack(">I", 1), entry)
+        stsd = _fullbox(b"stsd", 0, 0, struct.pack(">I", 1),
+                        self.sample_entry())
         stts = _fullbox(b"stts", 0, 0, struct.pack(">III", 1, n, self.inc)
                         if n else struct.pack(">I", 0))
         stss = _fullbox(b"stss", 0, 0, struct.pack(f">I{len(self.keys)}I",

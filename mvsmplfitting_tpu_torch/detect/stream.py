@@ -3,8 +3,9 @@
 `DataWriter` / `DataWriterSMPL`, `alphapose/utils/writer*.py`).
 
 Frames are read on the host (`data/video.py` without OpenCV:
-Motion-JPEG AVI, and MPEG-4 Part 2 in AVI or MP4/M4V/MOV through
-`data/mp4.py` and `data/mpeg4.py`; `data/images.py` for a folder),
+Motion-JPEG AVI, MPEG-4 Part 2 in AVI or MP4/M4V/MOV through
+`data/mp4.py` and `data/mpeg4.py`, H.264 in AVI, MP4/M4V/MOV or Annex B
+through `data/h264.py`; `data/images.py` for a folder),
 gathered into chunks of 4, run through the detector as one batch on the
 device and through the pose net (or HybrIK) per frame, then written: one
 OpenPose JSON per frame (`<out>/<serial>/%06d_keypoints.json`), the
@@ -12,8 +13,8 @@ reference's aggregated results file (`pose_nms.write_results_json`) and
 a drawn video at 30 fps (`viz/video.py:VideoWriter`: MPEG-4 at a `.mp4`,
 `.m4v`, `.mov` or `.avi` name, as cv2's `mp4v` writer writes it, else
 JAX's Motion-JPEG fallback at the `.avi` name).  A webcam index (V4L2)
-is refused, and so is any other video (H.264, Matroska, ...), naming
-the file and the codec or container.  A folder's `.jpg`, `.jpeg`, `.png` and `.bmp` frames
+is refused, and so is any other video (H.265, Matroska, H.264 with B
+slices, ...), naming the file and the codec, container or tool.  A folder's `.jpg`, `.jpeg`, `.png` and `.bmp` frames
 are read as `cv2.imread` reads them (`data/images.py`); a file the
 image reader refuses raises naming it (JAX's `cv2.imread` reads it or
 skips it).
@@ -47,8 +48,8 @@ def parse_source(src: str) -> Union[int, str]:
 
 def check_source(src) -> None:
     """Refuses a source the port cannot read before any net is built:
-    a webcam index, a missing path, a video other than Motion-JPEG AVI or
-    MPEG-4 Part 2 in AVI or MP4."""
+    a webcam index, a missing path, a video other than Motion-JPEG AVI,
+    MPEG-4 Part 2 in AVI or MP4, or H.264 in AVI, MP4 or Annex B."""
     if isinstance(src, int):
         raise VideoError(f"webcam {src}: live capture (V4L2) is not "
                          "supported; pass a video file or a folder of "

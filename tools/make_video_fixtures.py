@@ -27,6 +27,14 @@ cv2 reads them, and the sha256 of each frame's BGR array (the default
 that the port's reader can be held to OpenCV where OpenCV is not
 installed.  Clips already written with other bytes are overwritten; the
 run prints which changed.
+
+The H.264 clips (`H264_CLIPS`) are random-syntax streams of
+`tools/h264_streams.py` (cv2 here has no H.264 writer; FFmpeg's decoder
+is the yardstick): Annex B, MP4 `avc1`/`avc3` with NAL lengths of 4 and 2
+bytes, MOV and AVI, at small sizes (175x99 among them) and one
+1920x1080 clip coded at 1088 rows, mostly skipped macroblocks.
+`decoded_h264.json` records them as `decoded.json` records the MPEG-4
+clips.  `--h264` writes only those.
 """
 
 from __future__ import annotations
@@ -59,6 +67,76 @@ PORT_CLIPS = {
     "port_175x99.mp4": (175, 99, 13, 2, (2, -1), 255 & ~64),
     "port_175x100.avi": (175, 100, 13, 4, (-3, 1), 1 | 16),
 }
+
+
+# name: (container, Spec fields, the container's size or None); the
+# container is "annexb", "avi" (its fourcc), or "mp4" with the sample
+# entry and NAL length size.  H.264 crops 4:2:0 pictures to even sizes;
+# libavcodec crops further to a container's smaller size (175x99 here).
+H264_CLIPS = {
+    "h264_cavlc_176x144.h264": (("annexb",), dict(
+        width=176, height=144, frames=10, seed=101, refs=2,
+        num_ref_active=2, slices=2, pcm=True), None),
+    "h264_cabac_175x99.mp4": (("mp4", b"avc1", 4), dict(
+        width=176, height=100, frames=10, seed=102, cabac=True, t8=True,
+        refs=3, num_ref_active=3, modification=True, mmco=True,
+        dbk_offsets=True, poc_type=2, nonref=True, chroma_loc=0),
+        (175, 99)),
+    "h264_main_180x100.mov": (("mp4", b"avc3", 2), dict(
+        width=180, height=100, frames=10, seed=103, cabac=True,
+        weighted=True, refs=2, num_ref_active=2, dbk_idc=(0, 2),
+        slices=3, poc_type=1, chroma_offsets=True), None),
+    "h264_high_176x144.avi": (("avi", b"H264"), dict(
+        width=176, height=144, frames=10, seed=104, t8=True,
+        scaling="both", refs=2, num_ref_active=2, constrained_intra=True,
+        chroma_offsets=True, gaps=True), None),
+    "h264_1920x1080.mp4": (("mp4", b"avc1", 4), dict(
+        width=1920, height=1080, frames=12, seed=105, cabac=True, t8=True,
+        light=True, skip_p=0.85, intra_p=0.02, refs=2, num_ref_active=2),
+        None),
+}
+
+
+def write_h264_clip(path: str, container, fields: dict, box) -> None:
+    sys.path.insert(0, ROOT)
+    from tools import h264_streams as H
+
+    spec = H.Spec(**fields)
+    aus = H.write_stream(spec)
+    w, h = box or (spec.width, spec.height)
+    if container[0] == "annexb":
+        H.write_annexb(path, aus, aud=True)
+    elif container[0] == "avi":
+        H.write_avi(path, aus, w, h, container[1])
+    else:
+        H.write_mp4(path, aus, w, h, container[1], container[2])
+
+
+def write_h264_clips(out: str) -> int:
+    record = {}
+    for name, (container, fields, box) in sorted(H264_CLIPS.items()):
+        path = os.path.join(out, name)
+        old = open(path, "rb").read() if os.path.exists(path) else None
+        tmp = os.path.join(out, "tmp_" + name)
+        write_h264_clip(tmp, container, fields, box)
+        os.replace(tmp, path)
+        if old != open(path, "rb").read():
+            print("changed", name)
+        bgr, y, fps = cv2_read(path)
+        n = fields["frames"]
+        w, h = box or (fields["width"], fields["height"])
+        assert len(bgr) == n and len(y) == n, (name, len(bgr), len(y))
+        assert y[0].shape == (h, w), (name, y[0].shape)
+        record[name] = {"container": container[0], "width": w, "height": h,
+                        "frames": n, "fps": fps,
+                        "bgr_sha256": [sha(f) for f in bgr],
+                        "y_sha256": [sha(f) for f in y]}
+    with open(os.path.join(out, "decoded_h264.json"), "w") as f:
+        json.dump(record, f, indent=1, sort_keys=True)
+        f.write("\n")
+    total = sum(os.path.getsize(os.path.join(out, k)) for k in H264_CLIPS)
+    print(f"{len(H264_CLIPS)} H.264 clips, {total} bytes")
+    return 0
 
 
 def write_port_clip(path: str, w: int, h: int, frames: list,
@@ -137,8 +215,13 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join(ROOT, "tests", "fixtures",
                                                   "video"))
-    out = ap.parse_args().out
+    ap.add_argument("--h264", action="store_true",
+                    help="write only the H.264 clips")
+    args = ap.parse_args()
+    out = args.out
     os.makedirs(out, exist_ok=True)
+    if args.h264:
+        return write_h264_clips(out)
     record = {}
     clips = {**{k: v[:-1] for k, v in PORT_CLIPS.items()},
              **{k: v[1:] for k, v in CLIPS.items()}}
@@ -174,7 +257,7 @@ def main() -> int:
         f.write("\n")
     total = sum(os.path.getsize(os.path.join(out, k)) for k in clips)
     print(f"{len(clips)} clips, {total} bytes")
-    return 0
+    return write_h264_clips(out)
 
 
 if __name__ == "__main__":
